@@ -7,17 +7,29 @@ it imports nothing of JAX or of the JAX package.  Phases, each of which
 fails the run with a non-zero exit:
 
 1. card and build: the card's name and power limit (``nvidia-smi``),
-   then the select kernel built from ``kubernetes_tpu_torch/csrc``;
-2. kernel against plain: the CUDA select against ``select_plain`` on the
-   card, bit for bit, over edge-case rows and counters (incl. the uint32
-   wrap), then both timed per call at N = 5,000 with CUDA events;
-3. card against CPU: the streamed drain of a reduced ``mixed`` rig on
-   ``cuda`` and on ``cpu`` must place every pod identically;
+   then the kernel library (select and scan kernels) built from
+   ``kubernetes_tpu_torch/csrc`` with one ``nvcc`` command;
+2. select kernel against plain: the CUDA select against
+   ``select_plain`` on the card, bit for bit, over edge-case rows and
+   counters (incl. the uint32 wrap), then both timed per call at
+   N = 5,000 with CUDA events;
+2b. scan kernel against plain: ``scan_chunk`` against the step loop on
+   the card (``perf/scan_check.py``: choices, counter and every carried
+   state tensor bit for bit, two chunks per case), then one 2,048-pod
+   chunk at 5,000 nodes timed with CUDA events against its byte bound
+   and the step loop;
+3. card against CPU: the streamed drain of a reduced ``mixed`` rig
+   (through the scan kernel) and of a ``rich`` rig (through the step
+   loop and the select kernel) on ``cuda`` and on ``cpu`` must place
+   every pod identically, with the same counter;
 4. full width: the streamed drain of the north-star ``mixed`` rig
-   (5,000 nodes x 30,000 pods, chunk 2048) through the kernel, checked
-   for index range, node capacity and kernel launches == scan steps;
-5. profile: a short drain at full node width under torch.profiler,
-   for the card's busy share and the kernels that take its time.
+   (5,000 nodes x 30,000 pods, chunk 2048) through the scan kernel,
+   checked for index range, node capacity and one kernel launch per
+   chunk; a second drain splits its wall time into the host compile,
+   the hoist plus the scan, and the readback;
+5. profile: a drain of two chunks at full node width under
+   torch.profiler, for the card's busy share and the kernels that take
+   its time.
 
 It prints one ``{"kernels": [...]}`` line, then the card line, and last
 ``{"ok": true, "device": {...}}``.
@@ -34,10 +46,12 @@ import time
 
 import numpy as np
 
-# Published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and the
-# non-tensor-core f32 rate, for the least-time bound of each kernel.
+# Published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, the
+# non-tensor-core f32 rate and the int32 rate (half of it), for the
+# least-time bound of each kernel.
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+INT32_OPS_PER_S = 33.5e12
 
 
 def fail(msg: str) -> None:
@@ -126,7 +140,7 @@ def select_cases(n: int, rng: np.random.RandomState) -> list[np.ndarray]:
 
 COUNTERS = (0, 7, 2 ** 31, 2 ** 32 - 1, 2 ** 32, 2 ** 32 + 7)
 CHUNK = 2048          # the drain's chunk, as the daemon runs it
-PROFILE_PODS = 256    # scan steps in the profiled window
+PROFILE_PODS = 4096   # scan steps in the profiled window (two chunks)
 
 
 def phase_kernel(dev) -> dict:
@@ -197,6 +211,114 @@ def phase_kernel(dev) -> dict:
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
 
 
+def scan_bound(enc, kw: dict) -> tuple[float, str]:
+    from kubernetes_tpu_torch.perf.scan_check import STATE
+
+    """Least time (ms) of one ``scan_chunk`` call and what sets it: each
+    input read once, the carried state read once and written once, the
+    choices written once; against the operations every (pod, node) step
+    needs (f32: the select's two compares, the template add, the spread
+    score and its zone blend, one add per weighted term; int32: the
+    resource fit)."""
+    p, n = enc.shape
+    nbytes = enc.numel() * enc.element_size() + p * 4
+    for name, t in kw.items():
+        if hasattr(t, "element_size"):
+            once = t.numel() * t.element_size()
+            nbytes += 2 * once if name in STATE else once
+    f32 = 2
+    if kw.get("d_plane") is not None:
+        f32 += 1
+    for name, _w, _aux in kw.get("terms", ()):
+        if name in ("SelectorSpreadPriority", "ServiceSpreadingPriority"):
+            f32 += 6 + (7 if kw.get("sp_zone") is not None else 0)
+        else:
+            f32 += 8
+        f32 += 1
+    int32 = 7 if kw.get("use_resources") else 0
+    ops_ms = p * n * (f32 / F32_OPS_PER_S + int32 / INT32_OPS_PER_S) * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms
+                                   else "operations")
+
+
+def phase_scan(dev) -> dict:
+    """scan_chunk against the step loop on every case of perf/scan_check,
+    then one north-star chunk timed."""
+    import torch
+    from kubernetes_tpu_torch.engine import scan as scan_mod
+    from kubernetes_tpu_torch.perf import scan_check
+
+    worst = 0.0
+    n_steps = 0
+    for case in scan_check.cases(dev):
+        t0 = time.perf_counter()
+        try:
+            res = scan_check.run_routes(case)
+        except scan_check.ScanMismatch as err:
+            fail(f"scan kernel != step loop: {err}")
+        torch.cuda.synchronize()
+        if case.infeasible != (res["placed"] == 0):
+            fail(f"scan case {case.name!r} placed {res['placed']} pods")
+        worst = max(worst, res["max_abs_err"])
+        n_steps += res["steps"]
+        print(f"phase 2b: {case.name}: scan kernel == step loop (choices, "
+              f"counter, state bit for bit) over {res['steps']} steps in 2 "
+              f"chunks, {res['placed']} placed, "
+              f"{time.perf_counter() - t0:.3f} s")
+    print(f"phase 2b: all scan cases agree, {n_steps} steps, "
+          f"max_abs_err {worst}")
+
+    # One north-star chunk: its kernel arguments captured, then the launch
+    # alone (the state restored before each), the step loop and the kernel
+    # route with its hoist, in turns.
+    ns = scan_check.north_star_chunk(5000, CHUNK, dev)
+    enc, kw, init = ns["enc"], ns["kw"], ns["init"]
+
+    def chunk(route: str) -> float:
+        counter = torch.zeros(1, dtype=torch.int64, device=dev)
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        ns["sched"].solver._solve_scan(ns["db"], ns["dc"], counter, None,
+                                       ns["flags"], None, None, None,
+                                       route=route)
+        stop.record()
+        stop.synchronize()
+        return start.elapsed_time(stop)
+
+    def kernel_once() -> float:
+        for k, v in init.items():
+            kw[k].copy_(v)
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        scan_mod.scan_chunk(enc, **kw)
+        stop.record()
+        stop.synchronize()
+        return start.elapsed_time(stop)
+
+    k_ms = [kernel_once() for _ in range(5)]
+    p_ms = chunk("steps")
+    h_ms = [chunk("kernel") for _ in range(3)]
+    k_ms += [kernel_once() for _ in range(5)]
+    p2_ms = chunk("steps")
+    bound_ms, bound_by = scan_bound(enc, kw)
+    p, n = enc.shape
+    ms = statistics.median(k_ms)
+    plain_ms = statistics.median([p_ms, p2_ms])
+    print(f"phase 2b: one chunk of {p} pods x {n} nodes ({enc.dtype}): "
+          f"kernel {ms:.6f} ms (median of {len(k_ms)}; min "
+          f"{min(k_ms):.6f}, max {max(k_ms):.6f}) = "
+          f"{ms / p * 1e3:.6f} us per step; with its hoist "
+          f"{statistics.median(h_ms):.6f} ms; step loop {p_ms:.3f} / "
+          f"{p2_ms:.3f} ms = {plain_ms / p * 1e3:.3f} us per step; bound "
+          f"{bound_ms:.6f} ms ({bound_by})")
+    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
+
 def drain(sched, pods, chunk: int) -> tuple[list, float]:
     import torch
     t0 = time.perf_counter()
@@ -206,29 +328,81 @@ def drain(sched, pods, chunk: int) -> tuple[list, float]:
     return out, time.perf_counter() - t0
 
 
-def phase_parity(nodes: int, pods: int) -> None:
+def phase_parity(profile: str, nodes: int, pods: int, chunk: int) -> dict:
+    """The same drain on cuda and on cpu: identical placements and
+    counter.  Returns the cuda drain's kernel launches."""
+    from kubernetes_tpu_torch.engine import fused, scan
     from kubernetes_tpu_torch.perf import synth
 
     placements = {}
+    launches = {}
     for dev in ("cuda", "cpu"):
-        sched, plist = synth.make_rig(nodes, pods, profile="mixed",
+        sched, plist = synth.make_rig(nodes, pods, profile=profile,
                                       device=dev)
-        out, secs = drain(sched, plist, 2048)
+        fused.select_rows.launches = scan.scan_chunk.launches = 0
+        out, secs = drain(sched, plist, chunk)
+        if dev == "cuda":
+            launches = {"select_rows": fused.select_rows.launches,
+                        "scan_chunk": scan.scan_chunk.launches}
         placements[dev] = (out, int(sched.last_node_index))
-        print(f"phase 3: {dev} drain {nodes} nodes x {pods} pods: "
-              f"{secs:.3f} s, placed {sum(x is not None for x in out)}, "
-              f"last_node_index {int(sched.last_node_index)}")
+        print(f"phase 3: {dev} drain {profile} {nodes} nodes x {pods} pods "
+              f"(chunk {chunk}): {secs:.3f} s, placed "
+              f"{sum(x is not None for x in out)}, last_node_index "
+              f"{int(sched.last_node_index)}")
     if placements["cuda"] != placements["cpu"]:
         a, b = placements["cuda"][0], placements["cpu"][0]
         diff = [i for i in range(len(a)) if a[i] != b[i]][:5]
-        fail(f"cuda and cpu drains differ at pods {diff} "
+        fail(f"{profile}: cuda and cpu drains differ at pods {diff} "
              f"(counters {placements['cuda'][1]} vs {placements['cpu'][1]})")
-    print("phase 3: cuda placements == cpu placements")
+    chunks = -(-pods // chunk)
+    want = {"scan_chunk": chunks, "select_rows": 0} if profile == "mixed" \
+        else {"scan_chunk": 0, "select_rows": chunks * chunk}
+    if launches != want:
+        fail(f"{profile} drain launched {launches}, expected {want}")
+    print(f"phase 3: {profile}: cuda placements and counter == cpu; "
+          f"kernel launches {launches}")
+    return launches
+
+
+def split_drain(nodes: int, pods: int, chunk: int) -> dict:
+    """A drain whose wall time is split: ``_compile`` (host snapshot,
+    feature compile and upload), each chunk's ``_solve_scan`` (the hoist
+    plus the scan, synchronised so it is charged to the card's work), and
+    the rest (the readback of each chunk's choices and the host code
+    around it)."""
+    import torch
+    from kubernetes_tpu_torch.perf import synth
+
+    sched, plist = synth.make_rig(nodes, pods, profile="mixed",
+                                  device="cuda")
+    acc = {"compile": 0.0, "scan": 0.0}
+    compile_fn, solver = sched._compile, sched.solver
+    scan_fn = solver._solve_scan
+
+    def timed(key, fn):
+        def call(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            acc[key] += time.perf_counter() - t0
+            return out
+        return call
+
+    sched._compile = timed("compile", compile_fn)
+    solver._solve_scan = timed("scan", scan_fn)
+    try:
+        _, secs = drain(sched, plist, chunk)
+    finally:
+        del solver._solve_scan
+    acc["readback"] = secs - acc["compile"] - acc["scan"]
+    acc["wall"] = secs
+    return acc
 
 
 def phase_full(nodes: int, pods: int, chunk: int, card: str) -> dict:
     import torch
-    from kubernetes_tpu_torch.engine import fused
+    from kubernetes_tpu_torch.engine import fused, scan
     from kubernetes_tpu_torch.features import compiler as fc
     from kubernetes_tpu_torch.perf import synth
 
@@ -239,13 +413,13 @@ def phase_full(nodes: int, pods: int, chunk: int, card: str) -> dict:
 
     sched, plist = synth.make_rig(nodes, pods, profile="mixed",
                                   device="cuda")
-    steps = -(-pods // chunk) * chunk
-    fused.select_rows.launches = 0
+    chunks = -(-pods // chunk)
+    fused.select_rows.launches = scan.scan_chunk.launches = 0
     out, secs = drain(sched, plist, chunk)
-    launches = fused.select_rows.launches
-    if launches != steps:
-        fail(f"select kernel launched {launches} times for {steps} scan "
-             f"steps")
+    launches = scan.scan_chunk.launches
+    if launches != chunks or fused.select_rows.launches != 0:
+        fail(f"scan kernel launched {launches} times for {chunks} chunks, "
+             f"select kernel {fused.select_rows.launches} times (want 0)")
     nt = sched.cache.snapshot()[0]
     idx = np.array([-1 if x is None else nt.name_to_idx[x] for x in out])
     if len(idx) != pods or idx.min() < -1 or idx.max() >= nodes:
@@ -262,8 +436,13 @@ def phase_full(nodes: int, pods: int, chunk: int, card: str) -> dict:
     print(f"phase 4: {card}: drain {nodes} nodes x {pods} pods "
           f"(mixed, chunk {chunk}): {secs:.3f} s wall, "
           f"{pods / secs:.1f} pods/s, placed {placed}, "
-          f"kernel launches {launches} == scan steps {steps}, "
-          f"no node over capacity")
+          f"scan kernel launches {launches} == chunks {chunks}, select "
+          f"kernel launches 0, no node over capacity")
+    split = split_drain(nodes, pods, chunk)
+    print(f"phase 4: split drain {nodes} x {pods}: {split['wall']:.3f} s "
+          f"wall = _compile {split['compile']:.3f} s + hoist and scan "
+          f"{split['scan']:.3f} s + readback and the rest "
+          f"{split['readback']:.3f} s ({pods / split['wall']:.1f} pods/s)")
     return {"launches": launches}
 
 
@@ -281,7 +460,7 @@ def phase_profile(nodes: int, pods: int) -> None:
                                   device="cuda")
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        _, secs = drain(sched, plist, pods)
+        _, secs = drain(sched, plist, CHUNK)
     rows = []
     for k in prof.key_averages():
         if getattr(k, "device_type", None) != DeviceType.CUDA:
@@ -299,7 +478,7 @@ def phase_profile(nodes: int, pods: int) -> None:
     print(f"phase 5: drain {nodes} nodes x {pods} pods under the profiler: "
           f"{secs * 1e3:.3f} ms wall, card busy {busy_ms:.3f} ms "
           f"({100 * busy_ms / (secs * 1e3):.2f}% busy), {launches} kernel "
-          f"launches = {launches / pods:.1f} per scan step")
+          f"launches = {launches / pods:.3f} per scan step")
     for us, count, key in sorted(rows, reverse=True)[:8]:
         print(f"phase 5:   {us / 1e3:10.3f} ms  {count:7d} x  {key[:90]}")
 
@@ -308,45 +487,72 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--nodes", type=int, default=5000)
     ap.add_argument("--pods", type=int, default=30000)
-    ap.add_argument("--parity-nodes", type=int, default=1000)
+    ap.add_argument("--parity-nodes", type=int, default=5000)
     ap.add_argument("--parity-pods", type=int, default=4096)
+    ap.add_argument("--rich-nodes", type=int, default=1000)
+    ap.add_argument("--rich-pods", type=int, default=1024)
+    ap.add_argument("--kernels-only", action="store_true",
+                    help="build and run phases 2 and 2b only; prints no "
+                         "result lines")
     args = ap.parse_args()
 
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
-    from kubernetes_tpu_torch.engine import fused
+    from kubernetes_tpu_torch.engine import kernels
 
     card = card_line()
     print(f"phase 1: card {card}; torch {torch.__version__} "
           f"cuda {torch.version.cuda}")
     t0 = time.perf_counter()
-    lib, log = fused.build(verbose=True)
-    print(f"phase 1: built {lib.name} in {time.perf_counter() - t0:.3f} s")
+    lib, log = kernels.build(verbose=True)
+    print(f"phase 1: built {lib.name} (one nvcc command: "
+          f"{', '.join(src.name for src in kernels.SOURCES)}) in "
+          f"{time.perf_counter() - t0:.3f} s")
     for line in log.strip().splitlines():
         print(f"phase 1: nvcc: {line}")
 
     dev = torch.device("cuda")
     kstats = phase_kernel(dev)
-    phase_parity(args.parity_nodes, args.parity_pods)
+    sstats = phase_scan(dev)
+    if args.kernels_only:
+        return 0
+    phase_parity("mixed", args.parity_nodes, args.parity_pods, CHUNK)
+    rich = phase_parity("rich", args.rich_nodes, args.rich_pods, 512)
     full = phase_full(args.nodes, args.pods, CHUNK, card)
     phase_profile(args.nodes, PROFILE_PODS)
 
-    kernels = [{
+    kernels_line = [{
         "name": "select_rows",
         "route": "cuda",
         "source": "kubernetes_tpu_torch/csrc/select.cu",
         "replaces": "kubernetes_tpu/engine/fused.py:59",
-        "launches": full["launches"],
+        # Its path is now the step loop (the rich drain); on the main path
+        # its body runs inlined in scan_chunk.
+        "path": f"rich drain {args.rich_nodes} x {args.rich_pods}",
+        "launches": rich["select_rows"],
         "max_abs_err": kstats["max_abs_err"],
         "ms": kstats["ms"],
         "plain_ms": kstats["plain_ms"],
         "bound_ms": kstats["bound_ms"],
         "bound_by": kstats["bound_by"],
         "library_ms": None,
+    }, {
+        "name": "scan_chunk",
+        "route": "cuda",
+        "source": "kubernetes_tpu_torch/csrc/scan.cu",
+        "replaces": "kubernetes_tpu/engine/solver.py:1397",
+        "path": f"north-star drain {args.nodes} x {args.pods}",
+        "launches": full["launches"],
+        "max_abs_err": sstats["max_abs_err"],
+        "ms": sstats["ms"],
+        "plain_ms": sstats["plain_ms"],
+        "bound_ms": sstats["bound_ms"],
+        "bound_by": sstats["bound_by"],
+        "library_ms": None,
     }]
-    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"kernels": kernels_line}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,9 +9,9 @@ max-score nodes pick the ``counter % n_ties``-th in node-index order,
 ``-inf``, so one row is the whole per-pod decision input.
 
 * :func:`select_rows` — the wrapper.  On a CUDA tensor it launches the
-  hand-written kernel ``csrc/select.cu`` (built with ``nvcc`` at first
-  use, loaded with ``ctypes``) or raises; on a CPU tensor it computes
-  :func:`select_plain`.  It counts its kernel launches in
+  hand-written kernel ``csrc/select.cu`` (in the library that
+  ``engine/kernels.py`` builds at first use) or raises; on a CPU tensor
+  it computes :func:`select_plain`.  It counts its kernel launches in
   ``select_rows.launches``.
 * :func:`select_plain` — the same chain in torch ops, built the way the
   Pallas body builds it.
@@ -24,70 +24,12 @@ CPU); the kernel and the plain version both take the modulo in uint32.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
-from pathlib import Path
 
 import torch
 
-_SRC = Path(__file__).resolve().parent.parent / "csrc" / "select.cu"
-# build/kubernetes_tpu_torch/ at the root of the checkout (git-ignored).
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / \
-    "kubernetes_tpu_torch"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
-
-_lib_lock = threading.Lock()
-_lib: "ctypes.CDLL | None" = None
+from kubernetes_tpu_torch.engine.kernels import library
 
 _MASK32 = 0xFFFFFFFF
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
-    return os.path.join(home, "bin", "nvcc")
-
-
-def build(verbose: bool = False) -> tuple[Path, str]:
-    """Compile ``csrc/select.cu`` into a shared library under
-    ``BUILD_DIR``, named by the source's hash so an edited source
-    rebuilds.  Returns (library path, compiler output); ``verbose`` adds
-    ``-Xptxas -v`` (registers, shared memory and spills per kernel)."""
-    digest = hashlib.sha256(_SRC.read_bytes()).hexdigest()[:16]
-    lib = BUILD_DIR / f"libkt_select_{digest}.so"
-    if lib.exists() and not verbose:
-        return lib, ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, *(("-Xptxas", "-v") if verbose else ()),
-           "-o", str(tmp), str(_SRC)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}): "
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, lib)
-    return lib, proc.stdout + proc.stderr
-
-
-def _library() -> ctypes.CDLL:
-    global _lib
-    if _lib is None:
-        with _lib_lock:
-            if _lib is None:
-                path, _ = build()
-                lib = ctypes.CDLL(str(path))
-                lib.kt_select_rows.argtypes = [
-                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                    ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-                lib.kt_select_rows.restype = ctypes.c_int
-                _lib = lib
-    return _lib
 
 
 def select_plain(masked: torch.Tensor, counter: torch.Tensor
@@ -137,7 +79,7 @@ def select_rows(masked: torch.Tensor, counter: torch.Tensor
         raise ValueError("select_rows: tensors must lie on the current "
                          "CUDA device")
     out = torch.empty((rows, 2), dtype=torch.int32, device=masked.device)
-    err = _library().kt_select_rows(
+    err = library().kt_select_rows(
         ctypes.c_void_p(masked.data_ptr()),
         ctypes.c_void_p(counter.data_ptr()),
         ctypes.c_void_p(out.data_ptr()), ctypes.c_int(rows),

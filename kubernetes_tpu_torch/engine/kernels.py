@@ -1,0 +1,100 @@
+"""The port's CUDA kernel library: built from ``csrc/*.cu`` with one
+``nvcc`` command at first use, loaded with ``ctypes``.
+
+It holds two kernels, each with a plain C entry point:
+
+* ``kt_select_rows`` (``csrc/select.cu``) — the fused selectHost, one
+  CTA per row (wrapper: ``engine/fused.py:select_rows``);
+* ``kt_scan_chunk`` (``csrc/scan.cu``) — the sequential scan of a whole
+  chunk of pods in one launch (wrapper: ``engine/scan.py:scan_chunk``).
+
+The library is named by the hash of both sources and the flags, so an
+edited source rebuilds.  ``--fmad=false`` keeps ``nvcc`` from contracting
+``a * b + c`` into one FMA: the scan's f32 arithmetic must round as the
+step loop's separate PyTorch ops do.  Nothing here runs at import.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+_CSRC = Path(__file__).resolve().parent.parent / "csrc"
+SOURCES = (_CSRC / "select.cu", _CSRC / "scan.cu")
+# build/kubernetes_tpu_torch/ at the root of the checkout (git-ignored).
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / \
+    "kubernetes_tpu_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
+
+_lib_lock = threading.Lock()
+_lib: "ctypes.CDLL | None" = None
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    return os.path.join(home, "bin", "nvcc")
+
+
+def library_path() -> Path:
+    """Where the library for the current sources and flags lives."""
+    digest = hashlib.sha256()
+    for src in SOURCES:
+        digest.update(src.name.encode())
+        digest.update(src.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"libkt_kernels_{digest.hexdigest()[:16]}.so"
+
+
+def nvcc_command(out: Path, verbose: bool = False) -> list[str]:
+    """The one ``nvcc`` command that builds every source into ``out``;
+    ``verbose`` adds ``-Xptxas -v`` (registers, shared memory and spills
+    per kernel)."""
+    return [_nvcc(), *NVCC_FLAGS, *(("-Xptxas", "-v") if verbose else ()),
+            "-o", str(out), *map(str, SOURCES)]
+
+
+def build(verbose: bool = False) -> tuple[Path, str]:
+    """Compile the library unless it exists.  Returns (library path,
+    compiler output); ``verbose`` always rebuilds, to show ptxas's
+    report."""
+    lib = library_path()
+    if lib.exists() and not verbose:
+        return lib, ""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+    cmd = nvcc_command(tmp, verbose)
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}): "
+                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+    os.replace(tmp, lib)
+    return lib, proc.stdout + proc.stderr
+
+
+def library() -> ctypes.CDLL:
+    """The loaded library (built first if needed), with its entry
+    points' argument types declared."""
+    global _lib
+    if _lib is None:
+        with _lib_lock:
+            if _lib is None:
+                path, _ = build()
+                lib = ctypes.CDLL(str(path))
+                lib.kt_select_rows.argtypes = [
+                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                    ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+                lib.kt_select_rows.restype = ctypes.c_int
+                lib.kt_scan_chunk.argtypes = [ctypes.c_void_p,
+                                              ctypes.c_void_p]
+                lib.kt_scan_chunk.restype = ctypes.c_int
+                _lib = lib
+    return _lib

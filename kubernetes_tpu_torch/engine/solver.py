@@ -12,8 +12,12 @@ streamed sequential-greedy drain:
     placement-invariant [P, N] mask and score planes are hoisted out of
     the step loop; each step does O(N) work on one row.
 
-The step loop is a Python loop over torch ops with all state on the
-device.  No step reads a device value on the host (no ``.item()``,
+On the card a chunk whose families are all ``mixed`` (resources, the
+resource priorities, spread with or without zones) runs as ONE launch of
+the scan kernel (``engine/scan.py``, ``csrc/scan.cu``).  Any other chunk,
+and every chunk on the CPU, runs the step loop: a Python loop over torch
+ops with all state on the device, which is also the kernel's plain
+version.  No step reads a device value on the host (no ``.item()``,
 ``int()`` or ``bool()`` of a device tensor), so a chunk of steps is
 enqueued without a host round trip and read back once.  The fused select
 of every step is the CUDA kernel of ``engine/fused.py``.
@@ -39,6 +43,7 @@ from kubernetes_tpu_torch.api.policy import (DEFAULT_MAX_EBS_VOLUMES,
                                              canonical_priority_name,
                                              expand_predicates)
 from kubernetes_tpu_torch.engine import fused as fused_mod
+from kubernetes_tpu_torch.engine import scan as scan_mod
 from kubernetes_tpu_torch.features.batch import PodBatch
 from kubernetes_tpu_torch.features.compiler import (FeatureSpace,
                                                     NodeAggregates,
@@ -471,6 +476,15 @@ def _priority_plane(name: str, b: DeviceBatch, c: DeviceCluster,
     raise KeyError(f"unknown priority {name!r}")
 
 
+def scan_route(device: torch.device, fams: dict) -> str:
+    """Which body runs a chunk: ``"kernel"`` (one launch of the scan
+    kernel) for CUDA tensors whose families the kernel carries, else
+    ``"steps"`` (the step loop; for CUDA tensors with its select kernel
+    per step)."""
+    return "kernel" if device.type == "cuda" and scan_mod.takes(fams) \
+        else "steps"
+
+
 def _add_weighted(acc: torch.Tensor, weight: float,
                   plane: torch.Tensor) -> torch.Tensor:
     """``acc + f32(weight) * plane``; a weight of 1 skips the (exact,
@@ -568,7 +582,8 @@ class Solver:
                     flags: BatchFlags = ALL_ON_FLAGS,
                     carry: dict | None = None,
                     live: torch.Tensor | None = None,
-                    extra_mask: torch.Tensor | None = None
+                    extra_mask: torch.Tensor | None = None,
+                    route: str | None = None
                     ) -> tuple[torch.Tensor, torch.Tensor, dict]:
         """The sequential scan, with an additive per-(pod,node) score bias.
 
@@ -578,7 +593,8 @@ class Solver:
         every chunk carries the same state.  ``live`` [P] bool marks real
         rows (pad rows are infeasible everywhere, place nothing and bump
         no counter); ``extra_mask`` [P,N] is an extra hard feasibility
-        plane.  Returns (choices [P] int32, counter [1] int64, final
+        plane.  ``route`` forces the body (``scan_route`` chooses by
+        default).  Returns (choices [P] int32, counter [1] int64, final
         state dict).  The carry's tensors are updated in place: a
         chunk's final state is consumed by the next chunk only."""
         n = c.alloc.shape[0]
@@ -654,7 +670,7 @@ class Solver:
                           for nm, _, _ in dynamic_prios))
         return self._fused_scan(b, c, last_node_index, static_mask,
                                 static_score, carry, score_bias is not None,
-                                fams, dynamic_prios)
+                                fams, dynamic_prios, route)
 
     # Dynamic priorities whose pod-dependence is ONLY the nonzero-request
     # row: their per-step [N] score plane is a function of (template,
@@ -688,7 +704,7 @@ class Solver:
                     last_node_index: torch.Tensor,
                     static_mask: torch.Tensor, static_score: torch.Tensor,
                     carry: dict | None, has_bias: bool, fams: dict,
-                    dynamic_prios: tuple
+                    dynamic_prios: tuple, route: str | None = None
                     ) -> tuple[torch.Tensor, torch.Tensor, dict]:
         """The fused scan body, decision-identical to the JAX package's
         ``_fused_scan`` (solver.py:1319-1665):
@@ -707,8 +723,15 @@ class Solver:
           (engine/fused.py).
 
         Every per-step index is a device tensor (``index_select`` /
-        ``index_add_`` / ``index_copy_``), never a host value."""
+        ``index_add_`` / ``index_copy_``), never a host value.  With
+        ``route == "kernel"`` the whole chunk of steps is one launch of
+        ``engine/scan.py:scan_chunk`` on the same encoded plane and the
+        same state."""
         dev = c.alloc.device
+        route = route or scan_route(dev, fams)
+        if route == "kernel" and not scan_mod.takes(fams):
+            rich = [f for f in scan_mod.RICH_FAMILIES if fams[f]]
+            raise ValueError(f"the scan kernel does not carry {rich}")
         n = c.alloc.shape[0]
         p = b.request.shape[0]
         a = b.aff
@@ -818,6 +841,25 @@ class Solver:
             state["pd_gce"] = init("pd_gce", vs.pd_node_gce.clone)
 
         packed = state["packed"]
+        if route == "kernel":
+            kw = {}
+            if use_templates:
+                kw.update(templates=b.nz_templates, tmpl_idx=b.nz_tmpl_idx,
+                          d_plane=state["D"], tmpl_terms=tmpl_prios)
+            if track_spread:
+                kw.update(spread_group=b.spread_group,
+                          spread_incr=b.spread_incr, sp_node=state["sp_node"],
+                          sp_maxn=state["sp_maxn"])
+            if track_spread_zones:
+                kw.update(node_zone=zone_ids, has_zones=b.spread_has_zones,
+                          sp_zone=state["sp_zone"], sp_maxz=state["sp_maxz"])
+            choices = scan_mod.scan_chunk(
+                enc, request=b.request, nonzero=b.nonzero,
+                zero_request=b.zero_request, alloc=c.alloc, packed=packed,
+                counter=state["counter"], terms=other_prios,
+                use_resources=use_resources, **kw)
+            return choices, state["counter"], state
+
         counter = state["counter"]
         outs = []
         for i in range(p):

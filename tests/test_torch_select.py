@@ -14,7 +14,7 @@ import pytest
 import torch
 
 from kubernetes_tpu.engine import fused as ref_fused
-from kubernetes_tpu_torch.engine import fused
+from kubernetes_tpu_torch.engine import fused, kernels
 
 WRAP_COUNTERS = (0, 7, 2 ** 31, 2 ** 32 - 1)
 
@@ -109,7 +109,7 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
 
 
 def test_build_targets_hopper_without_fast_math():
-    flags = " ".join(fused.NVCC_FLAGS)
+    flags = " ".join(kernels.NVCC_FLAGS)
     assert "arch=compute_90a,code=sm_90a" in flags
     assert "fast-math" not in flags and "fast_math" not in flags
-    assert fused.BUILD_DIR.parts[-2:] == ("build", "kubernetes_tpu_torch")
+    assert kernels.BUILD_DIR.parts[-2:] == ("build", "kubernetes_tpu_torch")
