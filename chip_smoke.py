@@ -29,7 +29,28 @@ fails the run with a non-zero exit:
    the hoist plus the scan, and the readback;
 5. profile: a drain of two chunks at full node width under
    torch.profiler, for the card's busy share and the kernels that take
-   its time.
+   its time;
+6. select_hosts kernel against plain: ``kt_select_hosts`` (the
+   single-pod selectHost) against ``select_hosts_plain`` on the card,
+   choices and counter identical, over N in {1, 31, 257, 5,000, 16,384},
+   P in {1, 64}, infeasible rows, feasible -inf/+inf/NaN scores, ties
+   across thread segments, counters 0/2^31/2^32-1/2^32 and rows mixing
+   feasible and infeasible; then timed per call at N = 5,000, P = 1
+   (CUDA-graph replay);
+7. single pod at full width: ``schedule(pod)`` then ``assume_pod`` for
+   the 512 pods of a 5,000-node ``mixed`` rig plus one pod that fits
+   nowhere, on ``cuda`` and on ``cpu``: placements, counter and the
+   FitError map identical; microseconds per decision on the card, the
+   kernel's launches, a split of a decision into ``_compile``,
+   evaluate and the select with its readback; ``explain_failures`` of
+   64 pods, cuda against cpu;
+8. extender sidecar: ``serve_in_thread(device="cuda")`` answers the
+   reference latency test's workload over HTTP (5,000 ``mixed`` nodes
+   with resourceVersions, 200 probes, a fresh template every 10th, one
+   filter and one prioritize each), every response byte-identical to an
+   ``ExtenderCore(device="cpu")``'s; then 64 of the exchanges replayed
+   from 4 client threads at once, again identical; cold request, warm
+   p50/p99 per verb and the share of device work.
 
 It prints one ``{"kernels": [...]}`` line, then the card line, and last
 ``{"ok": true, "device": {...}}``.
@@ -42,7 +63,9 @@ import json
 import statistics
 import subprocess
 import sys
+import threading
 import time
+import urllib.request
 
 import numpy as np
 
@@ -483,6 +506,381 @@ def phase_profile(nodes: int, pods: int) -> None:
         print(f"phase 5:   {us / 1e3:10.3f} ms  {count:7d} x  {key[:90]}")
 
 
+def select_hosts_cases(p: int, n: int, rng: np.random.RandomState
+                       ) -> list[tuple[str, np.ndarray, np.ndarray]]:
+    """(name, scores [p, n] f32, feasible [p, n] bool) edge cases for the
+    single-pod select."""
+    base = rng.randint(0, 3, (p, n)).astype(np.float32)
+    half = rng.rand(p, n) < 0.5
+    cases = [("infeasible", base, np.zeros((p, n), bool))]
+    ninf = np.full((p, n), -np.inf, np.float32)
+    cases.append(("feasible -inf", ninf, half))
+    pinf = base.copy()
+    pinf[rng.rand(p, n) < 0.02] = np.inf
+    cases.append(("feasible +inf", pinf, half | (pinf == np.inf)))
+    nan = base.copy()
+    nan[rng.rand(p, n) < 0.02] = np.nan
+    cases.append(("feasible NaN", nan, np.ones((p, n), bool)))
+    # Equal scores on every 7th node: the ties fall in many threads'
+    # segments, so the rank crosses the block scan.
+    seventh = np.zeros((p, n), bool)
+    seventh[:, ::7] = True
+    cases.append(("ties across segments", np.ones((p, n), np.float32),
+                  seventh))
+    rows = half.copy()
+    rows[::2] = False
+    cases.append(("mixed rows", base, rows))
+    cases.append(("distinct", rng.randn(p, n).astype(np.float32), half))
+    return cases
+
+
+HOSTS_COUNTERS = (0, 2 ** 31, 2 ** 32 - 1, 2 ** 32)
+
+
+def phase_select_hosts(dev) -> dict:
+    """kt_select_hosts against select_hosts_plain on the card, then the
+    time per call at N = 5,000, P = 1."""
+    import torch
+    from kubernetes_tpu_torch.ops import combine
+
+    rng = np.random.RandomState(6)
+    calls = rows = 0
+    for n in (1, 31, 257, 5000, 16384):
+        for p in (1, 64):
+            for name, scores, feasible in select_hosts_cases(p, n, rng):
+                s_d = torch.from_numpy(scores).to(dev)
+                f_d = torch.from_numpy(feasible).to(dev)
+                for last in HOSTS_COUNTERS:
+                    l_d = torch.tensor([last], dtype=torch.int64, device=dev)
+                    got = combine.select_hosts(s_d, f_d, l_d)
+                    want = combine.select_hosts_plain(s_d, f_d, l_d)
+                    torch.cuda.synchronize()
+                    if not (torch.equal(got[0], want[0])
+                            and torch.equal(got[1], want[1])):
+                        bad = (got[0] != want[0]).nonzero()[:5]
+                        bad = bad.flatten().tolist()
+                        fail(f"select_hosts kernel != plain: N={n} P={p} "
+                             f"{name!r} counter {last}: rows {bad}: "
+                             f"{got[0][bad].tolist()} vs "
+                             f"{want[0][bad].tolist()}, counter "
+                             f"{got[1].tolist()} vs {want[1].tolist()}")
+                    calls += 1
+                    rows += p
+    print(f"phase 6: select_hosts kernel == select_hosts_plain (choices "
+          f"and counter) in {calls} calls over {rows} rows (N in 1..16384, "
+          f"P in (1, 64), counters {HOSTS_COUNTERS}), max_abs_err 0")
+
+    n = 5000
+    scores = rng.randint(0, 60, (1, n)).astype(np.float32)
+    feasible = rng.rand(1, n) < 0.6
+    s1 = torch.from_numpy(scores).to(dev)
+    f1 = torch.from_numpy(feasible).to(dev)
+    last = torch.tensor([12345], dtype=torch.int64, device=dev)
+    counter = last.clone()
+    choice = torch.empty(1, dtype=torch.int32, device=dev)
+    kernel = lambda: combine.launch(s1, f1, counter, choice)  # noqa: E731
+    wrapper = lambda: combine.select_hosts(s1, f1, last)  # noqa: E731
+    plain = lambda: combine.select_hosts_plain(s1, f1, last)  # noqa: E731
+    k_ms = device_time_per_call(kernel)
+    w_ms = device_time_per_call(wrapper)
+    p_ms = device_time_per_call(plain)
+    p2_ms = device_time_per_call(plain)
+    w2_ms = device_time_per_call(wrapper)
+    k2_ms = device_time_per_call(kernel)
+    w_eager = time_per_call(wrapper)
+    # Least time: read the score row (4 B per node), the feasible row
+    # (1 B), the counter; write the choice and the new counter; about 3
+    # f32 operations per node (mask, max, compare).
+    bytes_ms = (n * 5 + 8 + 4 + 8) / HBM_BYTES_PER_S * 1e3
+    ops_ms = 3 * n / F32_OPS_PER_S * 1e3
+    bound_ms = max(bytes_ms, ops_ms)
+    print(f"phase 6: N={n} P=1 per call on the card (CUDA graph replay): "
+          f"kernel alone {k_ms:.6f} / {k2_ms:.6f} ms, select_hosts "
+          f"(counter prep + kernel) {w_ms:.6f} / {w2_ms:.6f} ms, "
+          f"select_hosts_plain {p_ms:.6f} / {p2_ms:.6f} ms; eager, "
+          f"host-issued select_hosts {w_eager:.6f} ms; bound "
+          f"{bound_ms:.9f} ms")
+    return {"max_abs_err": 0, "ms": statistics.median([w_ms, w2_ms]),
+            "kernel_ms": statistics.median([k_ms, k2_ms]),
+            "plain_ms": statistics.median([p_ms, p2_ms]),
+            "bound_ms": bound_ms,
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def unplaceable(api):
+    return api.Pod(name="fits-nowhere", namespace="default", containers=[
+        api.Container(name="c", requests={"cpu": "512", "memory": "1Ti"})])
+
+
+def pct(values: list, q: float) -> float:
+    ordered = sorted(values)
+    return ordered[min(len(ordered) - 1, int(len(ordered) * q))]
+
+
+def single_split(nodes: int, pods: int) -> dict:
+    """Per-decision split of ``schedule`` on the card: ``_compile``
+    (snapshot, feature compile, upload, dirty-row scatter), evaluate,
+    and the rest (select kernel, the one readback, the host code), each
+    part synchronised so the parts add up."""
+    import torch
+    from kubernetes_tpu_torch.perf import synth
+
+    sched, plist = synth.make_rig(nodes, pods, profile="mixed",
+                                  device="cuda")
+    acc = {"compile": [], "evaluate": []}
+    compile_fn, solver = sched._compile, sched.solver
+    eval_fn = solver.evaluate
+
+    def timed(key, fn):
+        def call(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            acc[key].append(time.perf_counter() - t0)
+            return out
+        return call
+
+    sched._compile = timed("compile", compile_fn)
+    solver.evaluate = timed("evaluate", eval_fn)
+    walls = []
+    try:
+        for pod in plist:
+            t0 = time.perf_counter()
+            dest = sched.schedule(pod)
+            walls.append(time.perf_counter() - t0)
+            sched.cache.assume_pod(pod, dest)
+    finally:
+        del solver.evaluate
+    rest = [w - c - e for w, c, e in zip(walls, acc["compile"],
+                                         acc["evaluate"])]
+    med = statistics.median
+    return {"wall": med(walls), "compile": med(acc["compile"]),
+            "evaluate": med(acc["evaluate"]), "rest": med(rest)}
+
+
+def phase_single(nodes: int, pods: int, card: str) -> dict:
+    """schedule(pod) + assume_pod over a full-width rig on cuda and cpu."""
+    from kubernetes_tpu_torch.api import types as api
+    from kubernetes_tpu_torch.engine import fused, scan
+    from kubernetes_tpu_torch.engine.generic_scheduler import FitError
+    from kubernetes_tpu_torch.ops import combine
+    from kubernetes_tpu_torch.perf import synth
+
+    out = {}
+    for dev in ("cuda", "cpu"):
+        sched, plist = synth.make_rig(nodes, pods, profile="mixed",
+                                      device=dev)
+        plist = plist[:pods // 2] + [unplaceable(api)] + plist[pods // 2:]
+        decisions, lat = [], []
+        fused.select_rows.launches = scan.scan_chunk.launches = 0
+        combine.select_hosts.launches = 0
+        t_all = time.perf_counter()
+        for pod in plist:
+            t0 = time.perf_counter()
+            try:
+                dest = sched.schedule(pod)
+            except FitError as err:
+                lat.append(time.perf_counter() - t0)
+                decisions.append(("FitError", err.failed_predicates))
+                continue
+            lat.append(time.perf_counter() - t0)
+            sched.cache.assume_pod(pod, dest)
+            decisions.append(dest)
+        secs = time.perf_counter() - t_all
+        launches = {"select_hosts": combine.select_hosts.launches,
+                    "select_rows": fused.select_rows.launches,
+                    "scan_chunk": scan.scan_chunk.launches}
+        explain = sched.explain_failures(plist[:63] + [unplaceable(api)])
+        out[dev] = {"decisions": decisions, "lat": lat, "secs": secs,
+                    "last": int(sched.last_node_index), "explain": explain,
+                    "launches": launches}
+        placed = sum(isinstance(d, str) for d in decisions)
+        print(f"phase 7: {dev}: schedule + assume_pod of {len(plist)} pods "
+              f"onto {nodes} nodes: {secs:.3f} s, placed {placed}, "
+              f"FitErrors {len(plist) - placed}, last_node_index "
+              f"{out[dev]['last']}, launches {launches}")
+    c, h = out["cuda"], out["cpu"]
+    if c["decisions"] != h["decisions"] or c["last"] != h["last"]:
+        diff = [i for i, (a, b) in enumerate(zip(c["decisions"],
+                                                 h["decisions"]))
+                if a != b][:5]
+        fail(f"schedule: cuda and cpu differ at pods {diff} (counters "
+             f"{c['last']} vs {h['last']})")
+    fit_errors = [d for d in c["decisions"] if isinstance(d, tuple)]
+    if not fit_errors or len(fit_errors[0][1]) != nodes:
+        fail("the unplaceable pod did not raise a FitError naming every "
+             "node")
+    if c["explain"] != h["explain"]:
+        bad = [k for k in c["explain"] if c["explain"][k] != h["explain"][k]]
+        fail(f"explain_failures: cuda and cpu differ for {bad[:5]}")
+    want = {"select_hosts": len(c["decisions"]), "select_rows": 0,
+            "scan_chunk": 0}
+    if c["launches"] != want:
+        fail(f"schedule launched {c['launches']}, expected {want}")
+    warm = [x * 1e6 for x in c["lat"][1:]]
+    print(f"phase 7: {card}: cuda == cpu: {len(c['decisions'])} decisions, "
+          f"counter, the FitError map ({nodes} nodes) and explain_failures "
+          f"of 64 pods; per decision on the card: cold "
+          f"{c['lat'][0] * 1e6:.1f} us, warm p50 {pct(warm, 0.5):.1f} us, "
+          f"p99 {pct(warm, 0.99):.1f} us (cpu p50 "
+          f"{pct([x * 1e6 for x in h['lat'][1:]], 0.5):.1f} us, p99 "
+          f"{pct([x * 1e6 for x in h['lat'][1:]], 0.99):.1f} us); "
+          f"select_hosts launches {c['launches']['select_hosts']}")
+    split = single_split(nodes, pods // 2)
+    print(f"phase 7: split of a decision on the card (medians over "
+          f"{pods // 2} decisions, each part synchronised): wall "
+          f"{split['wall'] * 1e6:.1f} us = _compile "
+          f"{split['compile'] * 1e6:.1f} us + evaluate "
+          f"{split['evaluate'] * 1e6:.1f} us + select, readback and the "
+          f"rest {split['rest'] * 1e6:.1f} us")
+    return {"launches": c["launches"]["select_hosts"]}
+
+
+def node_item(node, rv: int) -> dict:
+    """One node of ExtenderArgs in the reference latency test's shape
+    (tests/test_extender_perf.py)."""
+    return {"metadata": {"name": node.name, "labels": dict(node.labels),
+                         "resourceVersion": str(rv)},
+            "status": {"allocatable": {
+                "cpu": f"{node.allocatable_milli_cpu}m",
+                "memory": str(node.allocatable_memory),
+                "pods": str(node.allocatable_pods)},
+                "conditions": [{"type": "Ready", "status": "True"}]}}
+
+
+def post(url: str, body: bytes) -> bytes:
+    req = urllib.request.Request(url, data=body, method="POST",
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=120) as r:
+        return r.read()
+
+
+def phase_extender(nodes: int, probes: int, card: str) -> None:
+    """The extender sidecar on the card against an ExtenderCore on the
+    CPU, byte for byte, sequentially and then from 4 threads at once."""
+    import torch
+    from kubernetes_tpu_torch.engine import solver as sv
+    from kubernetes_tpu_torch.engine.generic_scheduler import GenericScheduler
+    from kubernetes_tpu_torch.perf import synth
+    from kubernetes_tpu_torch.server import extender as ext
+
+    items = [node_item(nd, i + 1) for i, nd in enumerate(
+        synth.make_nodes(nodes, profile="mixed", n_zones=4))]
+    args = {"Pod": {"metadata": {"name": "probe", "namespace": "default"},
+                    "spec": {"containers": [{
+                        "name": "c",
+                        "resources": {"requests": {"cpu": "100m"}}}]}},
+            "Nodes": {"Items": items}}
+    cpu_core = ext.ExtenderCore(device="cpu")
+    # Device work of the card's requests, synchronised so it is charged
+    # to the card: evaluate and masks (plus their readback, which follows
+    # at once), and the host _compile with its upload.
+    acc = {"device": 0.0, "compile": 0.0}
+    orig = {"evaluate": sv.Solver.evaluate, "masks": sv.Solver.masks,
+            "_compile": GenericScheduler._compile}
+
+    def on_card(key, fn, is_cuda):
+        def call(self, *a, **k):
+            if not is_cuda(self, *a):
+                return fn(self, *a, **k)
+            t0 = time.perf_counter()
+            res = fn(self, *a, **k)
+            torch.cuda.synchronize()
+            acc[key] += time.perf_counter() - t0
+            return res
+        return call
+
+    def cluster_on_card(_self, _b, c, *rest):
+        return c.alloc.device.type == "cuda"
+
+    sv.Solver.evaluate = on_card("device", orig["evaluate"], cluster_on_card)
+    sv.Solver.masks = on_card("device", orig["masks"], cluster_on_card)
+    GenericScheduler._compile = on_card(
+        "compile", orig["_compile"],
+        lambda self, *a: self.device.type == "cuda")
+    server = ext.serve_in_thread(port=0, device="cuda")
+    base = f"http://127.0.0.1:{server.server_address[1]}/scheduler"
+    lat = {"filter": [], "prioritize": []}
+    replay = []
+    try:
+        for k in range(probes):
+            args["Pod"]["metadata"]["name"] = f"probe-{k}"
+            req = args["Pod"]["spec"]["containers"][0]["resources"][
+                "requests"]
+            req["cpu"] = f"{100 + k // 10}m" if k % 10 == 0 else "100m"
+            body = json.dumps(args).encode()
+            for verb in ("filter", "prioritize"):
+                t0 = time.perf_counter()
+                got = post(f"{base}/{verb}", body)
+                lat[verb].append(time.perf_counter() - t0)
+                if k == 0 and verb == "filter":
+                    cold = dict(acc, wall=lat[verb][0])
+                want = cpu_core.handle(verb, body)
+                if got != want:
+                    fail(f"extender {verb} of probe {k}: the card's "
+                         f"response ({len(got)} B) != the cpu's "
+                         f"({len(want)} B): {got[:200]!r} vs {want[:200]!r}")
+                if k % 6 == 0 and len(replay) < 64:
+                    replay.append((verb, body, want))
+        warm_total = sum(lat["filter"][1:]) + sum(lat["prioritize"])
+        warm_dev = acc["device"] - cold["device"]
+        warm_compile = acc["compile"] - cold["compile"]
+    finally:
+        sv.Solver.evaluate = orig["evaluate"]
+        sv.Solver.masks = orig["masks"]
+        GenericScheduler._compile = orig["_compile"]
+    n_resp = sum(len(v) for v in lat.values())
+    print(f"phase 8: {card}: {n_resp} extender responses at {nodes} nodes "
+          f"({probes} probes, a fresh template every 10th, filter then "
+          f"prioritize) from the card == ExtenderCore(device='cpu'), byte "
+          f"for byte")
+    errors: list = []
+
+    def client(part: list) -> None:
+        for verb, body, want in part:
+            got = post(f"{base}/{verb}", body)
+            if got != want:
+                errors.append((verb, len(got), len(want)))
+
+    try:
+        threads = [threading.Thread(target=client, args=(replay[i::4],))
+                   for i in range(4)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        secs = time.perf_counter() - t0
+        if any(t.is_alive() for t in threads):
+            fail("extender: a concurrent client did not finish")
+    finally:
+        server.shutdown()
+        server.server_close()
+    if errors or len(replay) != 64:
+        fail(f"extender: concurrent replay of {len(replay)} exchanges from "
+             f"4 threads differs from the cpu: {errors[:5]}")
+    print(f"phase 8: concurrent replay: 64 exchanges from 4 client threads "
+          f"in {secs:.3f} s, all identical to the cpu's responses")
+    ms = {v: [x * 1e3 for x in lat[v][1 if v == "filter" else 0:]]
+          for v in lat}
+    print(f"phase 8: {card}: cold first filter (node-list parse, compile, "
+          f"upload, evaluate) {cold['wall'] * 1e3:.3f} ms (_compile "
+          f"{cold['compile'] * 1e3:.3f} ms, evaluate+masks "
+          f"{cold['device'] * 1e3:.3f} ms); warm filter p50 "
+          f"{pct(ms['filter'], 0.5):.3f} ms p99 "
+          f"{pct(ms['filter'], 0.99):.3f} ms, prioritize p50 "
+          f"{pct(ms['prioritize'], 0.5):.3f} ms p99 "
+          f"{pct(ms['prioritize'], 0.99):.3f} ms (bars: p50 < 20, p99 < "
+          f"100); of the warm time {warm_total * 1e3:.3f} ms, evaluate + "
+          f"masks with readback on the card {warm_dev * 1e3:.3f} ms "
+          f"({100 * warm_dev / warm_total:.2f}%), _compile "
+          f"{warm_compile * 1e3:.3f} ms "
+          f"({100 * warm_compile / warm_total:.2f}%), JSON parse, render "
+          f"and HTTP the rest "
+          f"({100 * (1 - (warm_dev + warm_compile) / warm_total):.2f}%)")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--nodes", type=int, default=5000)
@@ -491,10 +889,15 @@ def main() -> int:
     ap.add_argument("--parity-pods", type=int, default=4096)
     ap.add_argument("--rich-nodes", type=int, default=1000)
     ap.add_argument("--rich-pods", type=int, default=1024)
+    ap.add_argument("--single-nodes", type=int, default=5000)
+    ap.add_argument("--single-pods", type=int, default=512)
+    ap.add_argument("--extender-nodes", type=int, default=5000)
+    ap.add_argument("--extender-probes", type=int, default=200)
     ap.add_argument("--kernels-only", action="store_true",
-                    help="build and run phases 2 and 2b only; prints no "
-                         "result lines")
+                    help="build and run phases 2, 2b and 6 only; prints "
+                         "no result lines")
     args = ap.parse_args()
+    t_start = time.perf_counter()
 
     import torch
     if not torch.cuda.is_available():
@@ -516,12 +919,15 @@ def main() -> int:
     dev = torch.device("cuda")
     kstats = phase_kernel(dev)
     sstats = phase_scan(dev)
+    hstats = phase_select_hosts(dev)
     if args.kernels_only:
         return 0
     phase_parity("mixed", args.parity_nodes, args.parity_pods, CHUNK)
     rich = phase_parity("rich", args.rich_nodes, args.rich_pods, 512)
     full = phase_full(args.nodes, args.pods, CHUNK, card)
     phase_profile(args.nodes, PROFILE_PODS)
+    single = phase_single(args.single_nodes, args.single_pods, card)
+    phase_extender(args.extender_nodes, args.extender_probes, card)
 
     kernels_line = [{
         "name": "select_rows",
@@ -551,7 +957,24 @@ def main() -> int:
         "bound_ms": sstats["bound_ms"],
         "bound_by": sstats["bound_by"],
         "library_ms": None,
+    }, {
+        "name": "select_hosts",
+        "route": "cuda",
+        "source": "kubernetes_tpu_torch/csrc/select.cu",
+        "replaces": "kubernetes_tpu/ops/combine.py:27",
+        "path": f"schedule(pod) x {args.single_pods + 1} at "
+                f"{args.single_nodes} nodes",
+        "launches": single["launches"],
+        "max_abs_err": hstats["max_abs_err"],
+        "ms": hstats["ms"],
+        "kernel_ms": hstats["kernel_ms"],
+        "plain_ms": hstats["plain_ms"],
+        "bound_ms": hstats["bound_ms"],
+        "bound_by": hstats["bound_by"],
+        "library_ms": None,
     }]
+    print(f"chip_smoke: all phases passed in "
+          f"{time.perf_counter() - t_start:.3f} s")
     print(json.dumps({"kernels": kernels_line}))
     print(card)
     print(json.dumps({"ok": True, "device": {

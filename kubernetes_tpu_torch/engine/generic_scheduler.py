@@ -1,15 +1,22 @@
 """Host orchestration: the batched counterpart of genericScheduler.Schedule
 (generic_scheduler.go:78-122), on PyTorch.
 
-Counterpart of ``kubernetes_tpu/engine/generic_scheduler.py`` for the
-main path: ``schedule_batch`` (sequential greedy) places a pending queue
-in one device solve, ``schedule_batch_stream`` in equal chunks with
-device-carried state.  Both are decision-identical to the JAX package.
+Counterpart of ``kubernetes_tpu/engine/generic_scheduler.py``:
+``schedule_batch`` (sequential greedy) places a pending queue in one
+device solve, ``schedule_batch_stream`` in equal chunks with
+device-carried state, ``schedule`` places one pod (the reference's
+Schedule, with policy extenders called over HTTP) and
+``explain_failures`` reports why pods fit nowhere.  All are
+decision-identical to the JAX package.
+
+On the card there is no host engine to fall back to: a device error
+propagates, and a non-finite score plane on the single-pod path (the JAX
+package's sanity gate, ``guard.checked_scores``) raises
+:class:`ScoreGateError`.
 
 Not in this package yet (each raises ``NotImplementedError``): pods with
 topologySpreadConstraints (the topology slice), the joint solve
-(``joint=True``), extenders, the single-pod ``schedule``,
-``explain_failures`` and ``find_preemptions``.
+(``joint=True``) and ``find_preemptions``.
 """
 
 from __future__ import annotations
@@ -29,12 +36,35 @@ from kubernetes_tpu_torch.api.policy import (Policy, default_provider,
                                              service_anti_affinity_labels)
 from kubernetes_tpu_torch.cache.scheduler_cache import SchedulerCache
 from kubernetes_tpu_torch.engine import solver as sv
+from kubernetes_tpu_torch.engine.extender_client import (ExtenderUnavailable,
+                                                         HTTPExtender)
 from kubernetes_tpu_torch.features import batch as fb
 from kubernetes_tpu_torch.features import padcap
 from kubernetes_tpu_torch.features.volumes import compile_volsvc
+from kubernetes_tpu_torch.ops import combine
 from kubernetes_tpu_torch.utils import device as device_mod
+from kubernetes_tpu_torch.utils import metrics
+from kubernetes_tpu_torch.utils.logging import get_logger
+from kubernetes_tpu_torch.utils.trace import Trace
+
+log = get_logger("engine")
 
 _MASK32 = 0xFFFFFFFF
+
+
+class FitError(Exception):
+    """No node fits (generic_scheduler.go:39-61). failed_predicates maps
+    node name -> list of failing predicate names."""
+
+    def __init__(self, pod: api.Pod, failed_predicates: dict[str, list[str]]):
+        self.pod = pod
+        self.failed_predicates = failed_predicates
+        super().__init__(f"pod ({pod.name}) failed to fit in any node")
+
+
+class ScoreGateError(RuntimeError):
+    """The single-pod sanity gate: the score plane held a NaN or an
+    infinity, which would select garbage."""
 
 
 @dataclass
@@ -121,8 +151,6 @@ class GenericScheduler:
                  device: "str | torch.device | None" = "cuda"):
         self.device = device_mod.resolve(device)
         self.policy = policy or default_provider()
-        if self.policy.extenders:
-            raise _not_ported("scheduler extenders", "extender")
         self.cache = cache or SchedulerCache()
         self.listers = listers or Listers()
         # Shared per policy signature (see Solver.for_policy).
@@ -130,6 +158,7 @@ class GenericScheduler:
         # Device-resident cluster mirror: per drain only the cache's
         # dirty rows are scattered into the resident arrays.
         self.resident = sv.ResidentCluster(self.device)
+        self.extenders = [HTTPExtender(cfg) for cfg in self.policy.extenders]
         self.last_node_index = np.uint32(0)
         # Monotonic compile state (features.padcap): table-axis capacities
         # and the OR of all content flags seen, so the drains of a
@@ -196,13 +225,181 @@ class GenericScheduler:
                                     self.cache.tensor_epoch)
         return batch, db, dc, nt
 
-    # -- entry points not in this package yet ----------------------------
+    # -- single-pod path (Schedule, generic_scheduler.go:78) -------------
 
     def schedule(self, pod: api.Pod) -> str:
-        raise _not_ported("the single-pod schedule()", "single-pod")
+        """One decision: the pod's feasibility and score planes against
+        the current cache, then selectHost (the CUDA kernel of
+        ``ops/combine.py`` on the card), or the extenders' filter and
+        prioritize when the policy names any.  Raises FitError when no
+        node fits, ScoreGateError on a non-finite score plane."""
+        trace = Trace(f"Scheduling {pod.namespace}/{pod.name}")
+        if not self.cache.nodes():
+            raise FitError(pod, {})
+        batch, db, dc, nt = self._compile([pod])
+        trace.step("Computing predicates & priorities")
+        feasible, scores = self.solver.evaluate(
+            db, dc, self._pinned_flags(batch))
+        trace.step("Selecting host")
+        if self.extenders:
+            feasible_np = feasible[0].cpu().numpy()
+            scores_np = scores[0].cpu().numpy()
+            self._check_scores(np.isfinite(scores_np).all())
+            if not feasible_np.any():
+                raise self._fit_error(pod, db, dc, nt)
+            host = self._schedule_with_extenders(pod, nt, feasible_np,
+                                                 scores_np)
+            trace.log_if_long()
+            return host
+        choice, new_last = combine.select_hosts(scores, feasible,
+                                                self._counter())
+        # One device->host copy: (choice, new counter, finite flag).
+        picked, new_last, finite = torch.cat(
+            [choice.long(), new_last,
+             torch.isfinite(scores).all().long()[None]]).cpu().tolist()
+        self._check_scores(finite)
+        if picked < 0:
+            raise self._fit_error(pod, db, dc, nt)
+        self.last_node_index = np.uint32(new_last & _MASK32)
+        trace.log_if_long()
+        return nt.names[picked]
+
+    @staticmethod
+    def _check_scores(finite: bool) -> None:
+        if not finite:
+            raise ScoreGateError("sanity gate: NaN/inf score plane")
+
+    def _fit_error(self, pod: api.Pod, db: sv.DeviceBatch,
+                   dc: sv.DeviceCluster, nt) -> FitError:
+        """FitError with, per schedulable node, the names of the
+        predicates that fail it (in ``Solver.masks`` order)."""
+        masks = {k: v[0].cpu().numpy()
+                 for k, v in self.solver.masks(db, dc).items()}
+        failed: dict[str, list[str]] = {}
+        for i, name in enumerate(nt.names):
+            if nt.schedulable[i]:
+                failed[name] = [p for p, m in masks.items() if not m[i]]
+        return FitError(pod, failed)
+
+    def _schedule_with_extenders(self, pod: api.Pod, nt,
+                                 feasible_np: np.ndarray,
+                                 scores_np: np.ndarray) -> str:
+        """Extender filter after built-in predicates
+        (generic_scheduler.go:189-207) and prioritize summed at weight
+        (:287-305), then selectHost (:124-141) host-side."""
+        nodes = self.cache.nodes()
+        candidates = [nodes[i] for i in range(len(nodes)) if feasible_np[i]]
+        failed_ext: dict[str, list[str]] = {}
+        degraded = False
+        for ext in self.extenders:
+            try:
+                candidates, failed = ext.filter(pod, candidates)
+            except ExtenderUnavailable:
+                # Breaker open: the endpoint is known-dead.  Graceful
+                # degradation — schedule on built-in predicates alone
+                # rather than failing every pod until it recovers.  (A
+                # closed-breaker timeout still raises ExtenderError and
+                # fails THIS pod, the reference's filter-timeout
+                # semantics, api/types.go:128-130.)
+                if not degraded:
+                    degraded = True
+                    metrics.EXTENDER_DEGRADED_DECISIONS.labels(
+                        extender=ext.config.url_prefix).inc()
+                    log.debug("extender %s unavailable (breaker open); "
+                              "scheduling %s with built-in predicates "
+                              "only", ext.config.url_prefix, pod.key)
+                continue
+            for name, msg in failed.items():
+                failed_ext.setdefault(name, []).append(msg or "extender")
+            if not candidates:
+                raise FitError(pod, failed_ext)
+        name_to_idx = nt.name_to_idx
+        combined = {n.name: float(scores_np[name_to_idx[n.name]])
+                    for n in candidates}
+        for ext in self.extenders:
+            for host, score in ext.prioritize(pod, candidates).items():
+                if host in combined:
+                    combined[host] += score
+        best = max(combined.values())
+        ties = [n.name for n in candidates if combined[n.name] == best]
+        choice = ties[int(self.last_node_index) % len(ties)]
+        self.last_node_index = np.uint32(
+            (int(self.last_node_index) + 1) & _MASK32)
+        return choice
+
+    def _schedule_batch_via_extenders(self, pods: list[api.Pod]
+                                      ) -> list[str | None]:
+        """Extenders are a per-pod HTTP protocol: the one-pod path with
+        temporary assumes for in-batch visibility, then restored (callers
+        re-assume)."""
+        out: list[str | None] = []
+        assumed: list[api.Pod] = []
+        try:
+            for pod in pods:
+                try:
+                    dest = self.schedule(pod)
+                except FitError:
+                    out.append(None)
+                    continue
+                self.cache.assume_pod(pod, dest)
+                assumed.append(pod)
+                out.append(dest)
+        finally:
+            for pod in assumed:
+                self.cache.forget_pod(pod)
+                pod.node_name = ""
+        return out
+
+    # Cap on pods explained per call: one compile + masks + evaluate over
+    # a batch padded to this many pods.
+    EXPLAIN_CAP = 64
 
     def explain_failures(self, pods: list[api.Pod]) -> dict:
-        raise _not_ported("explain_failures", "single-pod")
+        """Per-predicate failure counts (and top-scoring nodes) for pods
+        that failed to place, against the CURRENT cache snapshot: a pod
+        that only failed because of in-batch contention may show zero
+        failing predicates.  At most ``EXPLAIN_CAP`` pods, padded to that
+        many with inert pods, as the JAX package pads them."""
+        pods = pods[:self.EXPLAIN_CAP]
+        if not pods:
+            return {}
+        nodes = self.cache.nodes()
+        if not nodes:
+            return {pod.key: {"message": "no nodes in cluster",
+                              "failed_predicates": {}}
+                    for pod in pods}
+        padded = list(pods) + [
+            api.Pod(name=f"__explain-pad-{i}", namespace="__pad__")
+            for i in range(self.EXPLAIN_CAP - len(pods))]
+        batch, db, dc, nt = self._compile(padded)
+        masks = {name: m.cpu().numpy() for name, m in
+                 self.solver.masks(db, dc).items()}
+        _, scores = self.solver.evaluate(db, dc, sv.batch_flags(batch))
+        scores = scores.cpu().numpy()
+        sched = np.asarray(nt.schedulable, dtype=bool)
+        n_sched = int(sched.sum())
+        out: dict = {}
+        for i, pod in enumerate(pods):
+            counts = {}
+            for name, m in masks.items():
+                failing = int(np.count_nonzero(sched & ~m[i]))
+                if failing:
+                    counts[name] = failing
+            top_idx = np.argsort(-scores[i])[:5]
+            out[pod.key] = {
+                "message": f"pod ({pod.name}) failed to fit in any node"
+                if counts else
+                f"pod ({pod.name}) fit no node in this batch (in-batch "
+                f"contention; predicates pass against the current "
+                f"snapshot)",
+                "nodes_considered": n_sched,
+                "failed_predicates": counts,
+                "top_scores": [{"node": nt.names[int(j)],
+                                "score": float(scores[i][int(j)])}
+                               for j in top_idx]}
+        return out
+
+    # -- entry points not in this package yet ----------------------------
 
     def find_preemptions(self, pods: list[api.Pod],
                          protected: frozenset = frozenset()) -> list:
@@ -216,15 +413,18 @@ class GenericScheduler:
         """Place a pending queue in one device solve, sequential-greedy in
         queue order with full in-batch visibility.  Returns node names,
         None where unschedulable.  ``pad_to`` pads the batch with
-        live-masked inert rows."""
-        if joint:
-            raise _not_ported("the joint solve (joint=True)", "joint")
+        live-masked inert rows.  With policy extenders every pod goes
+        through the single-pod path (``schedule``)."""
         if not pods:
             return []
         if not self.cache.nodes():
             # Empty cluster: findNodesThatFit over zero nodes fails every
             # pod.
             return [None] * len(pods)
+        if self.extenders:
+            return self._schedule_batch_via_extenders(pods)
+        if joint:
+            raise _not_ported("the joint solve (joint=True)", "joint")
         real_p = len(pods)
         live = None
         if pad_to > real_p:

@@ -1,10 +1,13 @@
 """The port's CUDA kernel library: built from ``csrc/*.cu`` with one
 ``nvcc`` command at first use, loaded with ``ctypes``.
 
-It holds two kernels, each with a plain C entry point:
+It holds three kernels, each with a plain C entry point:
 
 * ``kt_select_rows`` (``csrc/select.cu``) — the fused selectHost, one
   CTA per row (wrapper: ``engine/fused.py:select_rows``);
+* ``kt_select_hosts`` (``csrc/select.cu``) — the single-pod path's
+  selectHost over a score and a feasible plane, one CTA per row
+  (wrapper: ``ops/combine.py:select_hosts``);
 * ``kt_scan_chunk`` (``csrc/scan.cu``) — the sequential scan of a whole
   chunk of pods in one launch (wrapper: ``engine/scan.py:scan_chunk``).
 
@@ -93,6 +96,11 @@ def library() -> ctypes.CDLL:
                     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                     ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
                 lib.kt_select_rows.restype = ctypes.c_int
+                lib.kt_select_hosts.argtypes = [
+                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                    ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                    ctypes.c_void_p]
+                lib.kt_select_hosts.restype = ctypes.c_int
                 lib.kt_scan_chunk.argtypes = [ctypes.c_void_p,
                                               ctypes.c_void_p]
                 lib.kt_scan_chunk.restype = ctypes.c_int

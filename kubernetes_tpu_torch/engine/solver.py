@@ -22,9 +22,13 @@ version.  No step reads a device value on the host (no ``.item()``,
 enqueued without a host round trip and read back once.  The fused select
 of every step is the CUDA kernel of ``engine/fused.py``.
 
+``evaluate`` / ``masks``
+    The one-shot [P, N] feasibility and weighted-score planes (and the
+    per-predicate masks behind them) of the single-pod path, the
+    extender verbs and ``explain_failures``.
+
 Not in this package yet: the legacy full-plane scan body, the joint
-solver, the narrow int16 wire planes and the single-pod evaluate/masks
-entry points.
+solver and the narrow int16 wire planes.
 """
 
 from __future__ import annotations
@@ -551,6 +555,55 @@ class Solver:
                 self.extra["max_ebs"] = spec.max_volumes
             elif spec.name == "MaxGCEPDVolumeCount" and spec.max_volumes:
                 self.extra["max_gce"] = spec.max_volumes
+
+    # -- one-shot batched evaluation ------------------------------------
+
+    def masks(self, b: DeviceBatch, c: DeviceCluster
+              ) -> dict[str, torch.Tensor]:
+        """Per-predicate [P,N] masks (for Filter verbs / failure
+        reporting), keyed in sorted name order: the order in which the
+        JAX package's jitted ``masks`` returns them, which the FitError
+        map and the extender's failure reasons list."""
+        n = c.alloc.shape[0]
+        return {name: _predicate_mask(name, b, c, n, self.extra)
+                for name in sorted(set(self.predicate_names))}
+
+    def evaluate(self, b: DeviceBatch, c: DeviceCluster,
+                 flags: BatchFlags = ALL_ON_FLAGS
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+        """(feasible [P,N] bool, scores [P,N] f32) against current state,
+        both contiguous.
+
+        ``flags`` (content-derived, see batch_flags) skips planes the batch
+        provably cannot trigger — an all-pass mask or all-zero plane."""
+        n = c.alloc.shape[0]
+        p = b.request.shape[0]
+        skip_preds = set()
+        if not flags.any_ports:
+            skip_preds |= {"PodFitsHostPorts", "PodFitsPorts"}
+        if not flags.any_volumes:
+            skip_preds.add("NoDiskConflict")
+        if not flags.any_ebs:
+            skip_preds.add("MaxEBSVolumeCount")
+        if not flags.any_gce:
+            skip_preds.add("MaxGCEPDVolumeCount")
+        if not flags.any_affinity_pred:
+            skip_preds.add("MatchInterPodAffinity")
+        # Unready nodes are filtered before scheduling (factory.go:436-462).
+        feasible = c.schedulable[None, :].expand(p, n).contiguous()
+        for name in self.predicate_names:
+            if name not in skip_preds:
+                feasible = feasible & \
+                    _predicate_mask(name, b, c, n, self.extra)
+        scores = torch.zeros((p, n), dtype=torch.float32,
+                             device=c.alloc.device)
+        for name, weight, aux in self.priority_specs:
+            if name == "InterPodAffinityPriority" and \
+                    not flags.any_affinity_prio:
+                continue  # all counts provably zero -> score plane is zero
+            scores = scores + float(weight) * \
+                _priority_plane(name, b, c, n, {"aux": aux})
+        return feasible, scores
 
     # -- sequential greedy solve ----------------------------------------
 

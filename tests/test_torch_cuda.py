@@ -1,7 +1,9 @@
 """Tests of the PyTorch port that need the card: the CUDA select kernel
 against its plain version, the scan kernel against its plain version (the
-step loop) on every case of ``perf/scan_check.py``, and drains on
-``cuda`` against the same drains on ``cpu``.  They skip themselves where
+step loop) on every case of ``perf/scan_check.py``, the single-pod
+select kernel (``kt_select_hosts``) against ``select_hosts_plain``, and
+drains, single-pod decisions and extender responses on ``cuda`` against
+the same on ``cpu``.  They skip themselves where
 there is no CUDA device; on the card run ``python -m pytest
 tests/test_torch_cuda.py -m cuda -q --noconftest``.  This file imports no
 JAX, so it also runs where only the port's dependencies are installed.
@@ -14,7 +16,9 @@ import numpy as np
 import pytest
 import torch
 
+from kubernetes_tpu_torch.api import types as api
 from kubernetes_tpu_torch.engine import fused, scan
+from kubernetes_tpu_torch.ops import combine
 from kubernetes_tpu_torch.perf import scan_check, synth
 
 COUNTERS = (0, 7, 2 ** 31, 2 ** 32 - 1, 2 ** 32 + 3)
@@ -130,3 +134,97 @@ def test_cuda_mixed_drain_runs_one_scan_launch_per_chunk(cuda):
             assert scan.scan_chunk.launches == 4
             assert fused.select_rows.launches == 0
     assert out["cuda"] == out["cpu"]
+
+
+def _hosts_cases(p: int, n: int, rng: np.random.RandomState) -> list:
+    """(scores, feasible) edge cases of the single-pod select."""
+    base = rng.randint(0, 3, (p, n)).astype(np.float32)
+    half = rng.rand(p, n) < 0.5
+    nan, pinf = base.copy(), base.copy()
+    nan[rng.rand(p, n) < 0.05] = np.nan
+    pinf[rng.rand(p, n) < 0.05] = np.inf
+    seventh = np.zeros((p, n), bool)
+    seventh[:, ::7] = True
+    rows = half.copy()
+    rows[::2] = False
+    return [(base, np.zeros((p, n), bool)),
+            (np.full((p, n), -np.inf, np.float32), half),
+            (pinf, half), (nan, np.ones((p, n), bool)),
+            (np.ones((p, n), np.float32), seventh), (base, rows)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 31, 257, 5000])
+@pytest.mark.parametrize("p", [1, 64])
+def test_cuda_select_hosts_matches_plain(cuda, n, p):
+    for scores, feasible in _hosts_cases(p, n, np.random.RandomState(n)):
+        s = torch.from_numpy(scores).to(cuda)
+        f = torch.from_numpy(feasible).to(cuda)
+        for last in (0, 2 ** 31, 2 ** 32 - 1, 2 ** 32):
+            lt = torch.tensor([last], dtype=torch.int64, device=cuda)
+            before = combine.select_hosts.launches
+            got = combine.select_hosts(s, f, lt)
+            assert combine.select_hosts.launches == before + 1
+            want = combine.select_hosts_plain(s, f, lt)
+            torch.cuda.synchronize()
+            assert torch.equal(got[0], want[0])
+            assert torch.equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+def test_cuda_select_hosts_wrapper_rejects_what_it_does_not_take(cuda):
+    s = torch.zeros((2, 8), device=cuda)
+    f = torch.ones((2, 8), dtype=torch.bool, device=cuda)
+    last = torch.zeros(1, dtype=torch.int64, device=cuda)
+    before = combine.select_hosts.launches
+    with pytest.raises(ValueError):
+        combine.select_hosts(s.half(), f, last)
+    with pytest.raises(ValueError):
+        combine.select_hosts(s, f, last.cpu())
+    with pytest.raises(ValueError):
+        combine.select_hosts(torch.zeros((8, 2), device=cuda).t(), f, last)
+    assert combine.select_hosts.launches == before
+
+
+@pytest.mark.cuda
+def test_cuda_schedule_matches_cpu_schedule(cuda):
+    from kubernetes_tpu_torch.engine.generic_scheduler import FitError
+
+    out = {}
+    for dev in ("cuda", "cpu"):
+        eng, pods = synth.make_rig(200, 64, profile="rich", device=dev)
+        huge = api.Pod(name="huge", namespace="default", containers=[
+            api.Container(name="c", requests={"cpu": "512"})])
+        decisions = []
+        before = combine.select_hosts.launches
+        for pod in pods[:32] + [huge] + pods[32:]:
+            try:
+                dest = eng.schedule(pod)
+            except FitError as err:
+                decisions.append(err.failed_predicates)
+                continue
+            eng.cache.assume_pod(pod, dest)
+            decisions.append(dest)
+        if dev == "cuda":
+            assert combine.select_hosts.launches == before + 65
+        out[dev] = (decisions, int(eng.last_node_index),
+                    eng.explain_failures(pods[:8] + [huge]))
+    assert out["cuda"] == out["cpu"]
+
+
+@pytest.mark.cuda
+def test_cuda_extender_core_matches_cpu(cuda):
+    import json
+
+    from kubernetes_tpu_torch.server.extender import ExtenderCore
+
+    items = [api.node_to_json(nd) for nd in synth.make_nodes(
+        300, profile="rich", n_zones=4)]
+    cores = {dev: ExtenderCore(device=dev) for dev in ("cuda", "cpu")}
+    for k, pod in enumerate(synth.make_pods(12, profile="rich",
+                                            n_services=4)):
+        body = json.dumps({"Pod": api.pod_to_json(pod),
+                           "Nodes": {"Items": items}}).encode()
+        for verb in ("filter", "prioritize"):
+            assert cores["cuda"].handle(verb, body) == \
+                cores["cpu"].handle(verb, body), (k, verb)

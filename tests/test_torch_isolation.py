@@ -46,6 +46,10 @@ def test_forbidden_name_match_is_exact():
 def test_port_sources_import_no_jax_and_no_reference_package():
     files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 20
+    names = {str(f.relative_to(PORT)) for f in files if PORT in f.parents}
+    assert {"ops/combine.py", "server/extender.py", "utils/debugmux.py",
+            "utils/metrics.py", "engine/extender_client.py",
+            "api/validation.py"} <= names
     bad = {str(f.relative_to(REPO)): [m for m in _imports(f)
                                       if _forbidden(m)]
            for f in files}
@@ -59,6 +63,15 @@ eng, pods = synth.make_rig(24, 40, profile="rich", device="cpu")
 placed = [n for _, pl in eng.schedule_batch_stream(pods, chunk_size=16)
           for n in pl]
 placed += eng.schedule_batch(pods[:8])
+placed.append(eng.schedule(pods[8]))
+eng.explain_failures(pods[:2])
+from kubernetes_tpu_torch.perf.synth import make_nodes
+from kubernetes_tpu_torch.api.types import node_to_json
+from kubernetes_tpu_torch.server.extender import ExtenderCore
+body = json.dumps({"Pod": {"metadata": {"name": "p"}}, "Nodes": {"Items": [
+    node_to_json(n) for n in make_nodes(8)]}}).encode()
+verdict = json.loads(ExtenderCore(device="cpu").handle("filter", body))
+placed += [n["metadata"]["name"] for n in verdict["nodes"]["items"]]
 mods = sorted(m for m in sys.modules
               if m in ("jax", "jaxlib", "kubernetes_tpu")
               or m.startswith(("jax.", "jaxlib.", "kubernetes_tpu.")))

@@ -17,7 +17,6 @@ import pytest
 import torch
 
 from kubernetes_tpu_torch.api import types as tapi
-from kubernetes_tpu_torch.api.policy import ExtenderConfig, default_provider
 from kubernetes_tpu_torch.engine.generic_scheduler import GenericScheduler
 
 from torch_parity import ref_rig, torch_rig
@@ -112,10 +111,6 @@ def test_paths_of_later_slices_raise_not_implemented():
     pod = t_pods[0]
     with pytest.raises(NotImplementedError, match="joint"):
         t_eng.schedule_batch([pod], joint=True)
-    with pytest.raises(NotImplementedError):
-        t_eng.schedule(pod)
-    with pytest.raises(NotImplementedError):
-        t_eng.explain_failures([pod])
     with pytest.raises(NotImplementedError, match="preemption"):
         t_eng.find_preemptions([pod])
     with pytest.raises(NotImplementedError, match="preemption"):
@@ -127,10 +122,8 @@ def test_paths_of_later_slices_raise_not_implemented():
             "labelSelector": {"matchLabels": {"app": "x"}}}])})
     with pytest.raises(NotImplementedError, match="topology"):
         t_eng.schedule_batch([spread])
-    policy = default_provider()
-    policy.extenders = [ExtenderConfig(url_prefix="http://127.0.0.1:1")]
-    with pytest.raises(NotImplementedError, match="extender"):
-        GenericScheduler(policy=policy, device="cpu")
+    with pytest.raises(NotImplementedError, match="topology"):
+        t_eng.schedule(spread)
 
 
 def test_cuda_device_without_a_card_raises():
