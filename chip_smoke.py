@@ -50,10 +50,33 @@ fails the run with a non-zero exit:
    filter and one prioritize each), every response byte-identical to an
    ``ExtenderCore(device="cpu")``'s; then 64 of the exchanges replayed
    from 4 client threads at once, again identical; cold request, warm
-   p50/p99 per verb and the share of device work.
+   p50/p99 per verb and the share of device work;
+9. daemon density: a ``Scheduler`` over 5,000 ``mixed`` nodes drains the
+   30,000 north-star pods twice — (a) with the reference defaults (one
+   one-shot solve) and (b) with ``STREAM_THRESHOLD = 4096`` (the
+   overlapped stream) — each placing every pod exactly as phase 4's
+   library drain did, no node over capacity, and from the daemon's own
+   metrics 0 crashed pods, 0 device faults and 0 refused binds; wall,
+   pods/s, assume/bind time and the kernels' launches of each run;
+10. factory: ``ConfigFactory`` over a ``MemStore`` holding 5,000 nodes
+   and 4,096 pods before ``run()``, on cuda and on cpu, every pod's
+   nodeName identical, with the time from ``run()`` to the last bind and
+   ``last_recovery``; then ``python -m kubernetes_tpu_torch.scheduler
+   --device cuda --port 0`` answers /healthz and /configz and exits 0 on
+   SIGTERM;
+11. preemption: 5,000 nodes filled by low-priority pods, 16 priority
+   pods that fit nowhere (and 2 that fit nowhere at all): decisions,
+   bindings, evicted victims and requeued pods identical on cuda and
+   cpu; ``victim_solve`` per call at N = 5,000, V = 16 against its byte
+   bound;
+12. device guard: a real CUDA out-of-memory error classifies as ``oom``;
+   a ``KT_CHAOS_DEVICE`` cadence (an OOM, then a device loss) in a
+   daemon drain of 4,096 pods: every pod binds as in the fault-free run,
+   the fault counters match the injection, and no mode reads ``host``.
 
-It prints one ``{"kernels": [...]}`` line, then the card line, and last
-``{"ok": true, "device": {...}}``.
+It prints one ``{"kernels": [...]}`` line (with each kernel's launches
+on its phase's path and in the two daemon runs of phase 9), then the
+card line, and last ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -466,7 +489,9 @@ def phase_full(nodes: int, pods: int, chunk: int, card: str) -> dict:
           f"wall = _compile {split['compile']:.3f} s + hoist and scan "
           f"{split['scan']:.3f} s + readback and the rest "
           f"{split['readback']:.3f} s ({pods / split['wall']:.1f} pods/s)")
-    return {"launches": launches}
+    return {"launches": launches, "counter": int(sched.last_node_index),
+            "placements": {pod.key: node for pod, node in zip(plist, out)
+                           if node is not None}}
 
 
 def phase_profile(nodes: int, pods: int) -> None:
@@ -881,6 +906,433 @@ def phase_extender(nodes: int, probes: int, card: str) -> None:
           f"({100 * (1 - (warm_dev + warm_compile) / warm_total):.2f}%)")
 
 
+# -- the scheduler daemon (phases 9-12) --------------------------------------
+
+def zero_counts() -> None:
+    from kubernetes_tpu_torch.engine import fused, scan
+    from kubernetes_tpu_torch.ops import combine
+    fused.select_rows.launches = scan.scan_chunk.launches = 0
+    combine.select_hosts.launches = 0
+
+
+def kernel_counts() -> dict:
+    from kubernetes_tpu_torch.engine import fused, scan
+    from kubernetes_tpu_torch.ops import combine
+    return {"scan_chunk": scan.scan_chunk.launches,
+            "select_rows": fused.select_rows.launches,
+            "select_hosts": combine.select_hosts.launches}
+
+
+def counter_total(family, label: str = "") -> float:
+    """The sum of a labelled counter's children (or one label's)."""
+    return sum(c.value for k, c in family.children().items()
+               if not label or k[0] == label)
+
+
+def make_daemon(nodes: int, device: str, **attrs):
+    """A synchronous-bind daemon over ``synth.make_rig(nodes, 0,
+    "mixed")`` with an in-memory CAS binder."""
+    from kubernetes_tpu_torch.perf import synth
+    from kubernetes_tpu_torch.scheduler.binder import InMemoryBinder
+    from kubernetes_tpu_torch.scheduler.scheduler import (Scheduler,
+                                                          SchedulerConfig)
+    sched, _ = synth.make_rig(nodes, 0, profile="mixed", device=device)
+    d = Scheduler(SchedulerConfig(algorithm=sched, binder=InMemoryBinder(),
+                                  async_bind=False))
+    for k, v in attrs.items():
+        setattr(d, k, v)
+    return d
+
+
+def over_capacity(sched, bound: dict, pods: list) -> int:
+    """Nodes whose bound pods exceed their cpu, memory or pod count."""
+    from kubernetes_tpu_torch.features import compiler as fc
+    nt = sched.cache.snapshot()[0]
+    used = np.zeros(nt.alloc.shape, np.int64)
+    for pod in pods:
+        node = bound.get(pod.key)
+        if node is not None:
+            used[nt.name_to_idx[node]] += fc.pod_resource_row(pod)
+    cols = [fc.RES_CPU, fc.RES_MEM, fc.RES_PODS]
+    return int((used[:, cols] > nt.alloc[:, cols]).any(axis=1).sum())
+
+
+def phase_daemon(nodes: int, pods: int, full: dict, card: str) -> dict:
+    """The daemon's drain of the north-star avalanche, twice: (a) with the
+    reference defaults (STREAM_THRESHOLD unset: one one-shot solve) and
+    (b) with STREAM_THRESHOLD = 4096 (the overlapped stream of 4096-pod
+    chunks).  Both must place every pod as phase 4's library drain did."""
+    import torch
+    from kubernetes_tpu_torch.perf import synth
+    from kubernetes_tpu_torch.utils import metrics
+
+    warm = make_daemon(nodes, "cuda")
+    try:
+        for p in synth.make_pods(CHUNK, profile="mixed", n_services=4,
+                                 name_prefix="warm"):
+            warm.enqueue(p)
+        warm.schedule_pending(wait_first=False)
+    finally:
+        warm.stop()
+    runs = {}
+    for label, attrs, want_scan in (
+            ("a", {}, 1),
+            ("b", {"STREAM_THRESHOLD": 4096}, -(-pods // 4096))):
+        d = make_daemon(nodes, "cuda", **attrs)
+        try:
+            plist = synth.make_pods(pods, profile="mixed", n_services=4)
+            commit = [0.0]
+            real = d._assume_and_bind_batch
+
+            def timed(*a, _real=real, **k):
+                t0 = time.perf_counter()
+                try:
+                    return _real(*a, **k)
+                finally:
+                    commit[0] += time.perf_counter() - t0
+            d._assume_and_bind_batch = timed
+            for p in plist:
+                d.enqueue(p)
+            faults0 = counter_total(metrics.DEVICE_FAULTS)
+            refused0 = metrics.GATE_REJECTED_BINDS.value
+            errors0 = d.config.metrics.scheduling_attempts.labels(
+                result="error").value
+            zero_counts()
+            t0 = time.perf_counter()
+            drains = 0
+            while len(d.queue):
+                d.schedule_pending(wait_first=False)
+                drains += 1
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = kernel_counts()
+            bound = dict(d.config.binder._bound)
+            crashed = d.config.metrics.scheduling_attempts.labels(
+                result="error").value - errors0
+            faults = counter_total(metrics.DEVICE_FAULTS) - faults0
+            refused = metrics.GATE_REJECTED_BINDS.value - refused0
+            if bound != full["placements"]:
+                diff = sorted(set(bound.items()) ^
+                              set(full["placements"].items()))[:5]
+                fail(f"daemon run {label}: placements differ from the "
+                     f"library drain of phase 4: {diff}")
+            if int(d.config.algorithm.last_node_index) != full["counter"]:
+                fail(f"daemon run {label}: counter "
+                     f"{int(d.config.algorithm.last_node_index)} != "
+                     f"{full['counter']}")
+            over = over_capacity(d.config.algorithm, bound, plist)
+            if over or crashed or faults or refused:
+                fail(f"daemon run {label}: {over} nodes over capacity, "
+                     f"{crashed} crashed pods, {faults} device faults, "
+                     f"{refused} sanity-rejected binds")
+            want = {"scan_chunk": want_scan, "select_rows": 0,
+                    "select_hosts": 0}
+            if counts != want:
+                fail(f"daemon run {label} launched {counts}, expected "
+                     f"{want}")
+            runs[label] = {"wall": wall, "commit": commit[0],
+                           "counts": counts}
+            route = "one-shot" if label == "a" else \
+                "stream of 4096-pod chunks, commit worker overlapping"
+            print(f"phase 9: {card}: daemon run {label} ({route}): "
+                  f"{len(bound)} of {pods} pods bound onto {nodes} nodes "
+                  f"in {drains} drain(s), {wall:.3f} s wall, "
+                  f"{len(bound) / wall:.1f} pods/s; assume/bind "
+                  f"{commit[0]:.3f} s, solve side (wall minus assume/bind) "
+                  f"{wall - commit[0]:.3f} s; launches {counts}; 0 nodes "
+                  f"over capacity, 0 crashed, 0 device faults, 0 refused "
+                  f"binds; placements and counter == phase 4")
+        finally:
+            d.stop()
+    return runs
+
+
+def wait_bound(store, n: int, seconds: float) -> float:
+    """Seconds until ``n`` pods of ``store`` carry a nodeName."""
+    t0 = time.perf_counter()
+    while True:
+        bound = sum(bool((o.get("spec") or {}).get("nodeName"))
+                    for o in store.list("pods")[0])
+        if bound >= n:
+            return time.perf_counter() - t0
+        if time.perf_counter() - t0 > seconds:
+            fail(f"only {bound} of {n} pods bound within {seconds} s")
+        time.sleep(0.05)
+
+
+def phase_factory(nodes: int, pods: int, card: str) -> None:
+    """The factory over a MemStore holding ``nodes`` nodes and ``pods``
+    pods before ``run()``, on cuda and on cpu: every pod's nodeName equal;
+    then the daemon binary on the card."""
+    import signal
+    from kubernetes_tpu_torch.api import types as api
+    from kubernetes_tpu_torch.apiserver.memstore import MemStore
+    from kubernetes_tpu_torch.perf import synth
+    from kubernetes_tpu_torch.scheduler.factory import ConfigFactory
+
+    names = {}
+    for dev in ("cuda", "cpu"):
+        store = MemStore()
+        for nd in synth.make_nodes(nodes, profile="mixed"):
+            store.create("nodes", api.node_to_json(nd))
+        for p in synth.make_pods(pods, profile="mixed", n_services=4):
+            store.create("pods", api.pod_to_json(p))
+        f = ConfigFactory(store, device=dev)
+        try:
+            t0 = time.perf_counter()
+            f.run()
+            secs = time.perf_counter() - t0 + wait_bound(store, pods, 600)
+            names[dev] = {o["metadata"]["name"]: o["spec"]["nodeName"]
+                          for o in store.list("pods")[0]}
+            print(f"phase 10: {card if dev == 'cuda' else 'cpu'}: factory "
+                  f"over a MemStore ({nodes} nodes, {pods} pods created "
+                  f"before run()) on {dev}: every pod bound "
+                  f"{secs:.3f} s after run(); last_recovery "
+                  f"{f.last_recovery}")
+        finally:
+            f.stop()
+    if names["cuda"] != names["cpu"]:
+        diff = [k for k in names["cuda"]
+                if names["cuda"][k] != names["cpu"].get(k)][:5]
+        fail(f"factory: cuda and cpu bound pods differently: {diff}")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "kubernetes_tpu_torch.scheduler",
+         "--device", "cuda", "--port", "0"], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    try:
+        port = json.loads(proc.stdout.readline())["port"]
+        for path in ("/healthz", "/configz"):
+            with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                        timeout=60) as resp:
+                body = resp.read()
+            if resp.status != 200:
+                fail(f"daemon binary {path} answered {resp.status}")
+        if json.loads(body)["device"] != "cuda":
+            fail(f"daemon binary /configz: {body[:200]!r}")
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=120)
+        if rc != 0:
+            fail(f"daemon binary exited {rc} on SIGTERM: "
+                 f"{proc.stderr.read()[-2000:]}")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    print(f"phase 10: cuda == cpu: all {pods} nodeNames; python -m "
+          f"kubernetes_tpu_torch.scheduler --device cuda answered /healthz "
+          f"and /configz and exited 0 on SIGTERM")
+
+
+def victim_tables(n: int, v: int, dev) -> list:
+    """victim_solve's inputs at (N, V) from a seed: [N,4] alloc and
+    requested, [N] base row, [N,V,4] victim requests, [N,V] priorities
+    and validity, the pod's [4] request, zero flag and priority."""
+    import torch
+    rng = np.random.RandomState(5)
+    alloc = np.tile(np.array([[4000, 8192, 1, 110]], np.int32), (n, 1))
+    host = [alloc, (alloc * rng.uniform(0.6, 1.0, (n, 1))).astype(np.int32),
+            rng.rand(n) < 0.9,
+            rng.randint(0, 900, (n, v, 4)).astype(np.int32),
+            np.sort(rng.randint(0, 9, (n, v)), 1).astype(np.int32),
+            rng.rand(n, v) < 0.8, np.array([1500, 3000, 0, 1], np.int32)]
+    return [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+            for a in host] + [torch.tensor(False, device=dev),
+                              torch.tensor(8, dtype=torch.int32, device=dev)]
+
+
+def phase_preemption(nodes: int, card: str) -> dict:
+    """Every node filled by one low-priority pod (priority 0..3) leaving
+    100m of cpu; 16 priority pods of 500m that fit nowhere without an
+    eviction, and two of 1,000 cpus that fit nowhere even on an empty
+    node (they requeue).  On cuda and on
+    cpu the decisions, final bindings, evicted victims and requeued pods
+    must be identical.  Then victim_solve alone at (N, 16)."""
+    import torch
+    from kubernetes_tpu_torch.api import types as api
+    from kubernetes_tpu_torch.engine.workloads import preemption
+    from kubernetes_tpu_torch.utils import metrics
+
+    def pod(name, cpu, prio):
+        return api.Pod(name=name, namespace="default",
+                       annotations={api.PRIORITY_ANNOTATION_KEY: str(prio)},
+                       containers=[api.Container(
+                           name="c", requests={"cpu": cpu,
+                                               "memory": "64Mi"})])
+
+    out = {}
+    for dev in ("cuda", "cpu"):
+        d = make_daemon(nodes, dev)
+        try:
+            sched = d.config.algorithm
+            nt = sched.cache.snapshot()[0]
+            for i, name in enumerate(nt.names):
+                low = pod(f"low-{i}", f"{int(nt.alloc[i, 0]) - 100}m", i % 4)
+                low.node_name = name
+                sched.cache.add_pod(low)
+                d.config.binder.bind(low, name)
+            decisions, per = [], []
+            real = sched.find_preemptions
+
+            def spy(pods, protected=frozenset(), _real=real):
+                t0 = time.perf_counter()
+                got = _real(pods, protected=protected)
+                per.append((time.perf_counter() - t0) / max(len(got), 1))
+                decisions.extend((x.pod_key, x.node, tuple(x.victims),
+                                  x.prio_cost) for x in got)
+                return got
+            sched.find_preemptions = spy
+            hi = [pod(f"hi-{j}", "500m", 10 + j % 3) for j in range(16)]
+            hi += [pod(f"huge-{j}", "1000", 1) for j in range(2)]
+            for p in hi:
+                d.enqueue(p)
+            executed0 = metrics.PREEMPTIONS.labels(result="executed").value
+            d.schedule_pending(wait_first=False)
+            bound = dict(d.config.binder._bound)
+            with d._requeue_cv:
+                requeued = sorted(p.key for _, _, p in d._requeue_heap)
+            evicted = sorted(f"default/low-{i}"
+                             for i in range(len(nt.names))
+                             if f"default/low-{i}" not in bound)
+            out[dev] = {"decisions": decisions, "bound": bound,
+                        "evicted": evicted, "requeued": requeued,
+                        "executed": metrics.PREEMPTIONS.labels(
+                            result="executed").value - executed0,
+                        "per": per}
+        finally:
+            d.stop()
+    c, h = out["cuda"], out["cpu"]
+    for key in ("decisions", "bound", "evicted", "requeued"):
+        if c[key] != h[key]:
+            fail(f"preemption: cuda and cpu {key} differ")
+    victims = sorted({v for dec in c["decisions"] for v in dec[2]})
+    if len(c["decisions"]) != 16 or not victims or \
+            c["evicted"] != victims or \
+            c["requeued"] != ["default/huge-0", "default/huge-1"] or \
+            not all(f"default/hi-{j}" in c["bound"] for j in range(16)):
+        fail(f"preemption: {len(c['decisions'])} decisions, "
+             f"{len(c['evicted'])} evicted ({len(victims)} named), "
+             f"requeued {c['requeued']}")
+    dev = torch.device("cuda")
+    v = preemption.padded_width()
+    args = victim_tables(nodes, v, dev)
+    want = preemption.victim_solve(*[a.cpu() for a in args])
+    got = preemption.victim_solve(*args)
+    if not all(torch.equal(g.cpu(), w) for g, w in zip(got, want)):
+        fail("victim_solve on cuda != on cpu")
+    eager_ms = time_per_call(lambda: preemption.victim_solve(*args))
+    graph_ms = device_time_per_call(lambda: preemption.victim_solve(*args))
+    nbytes = nodes * v * (16 + 4 + 1) + nodes * (16 + 16 + 1) + 16 + 1 + 4 \
+        + nodes * (4 + 4 + 1)
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    print(f"phase 11: {card}: preemption on {nodes} filled nodes: 16 "
+          f"decisions (node, victims, cost) over {len(victims)} victims "
+          f"(later decisions reuse a node a victim freed), bindings, "
+          f"evicted victims and 2 requeued pods identical on cuda and "
+          f"cpu; find_preemptions "
+          f"{statistics.median(c['per']) * 1e6:.1f} us per decision on "
+          f"cuda ({statistics.median(h['per']) * 1e6:.1f} us on cpu)")
+    print(f"phase 11: {card}: victim_solve at N={nodes}, V={v}: "
+          f"{eager_ms * 1e3:.3f} us per eager call (CUDA events, median), "
+          f"{graph_ms * 1e3:.3f} us per call on the card (CUDA graph "
+          f"replay); bound {bound_ms * 1e3:.3f} us ({nbytes} bytes at "
+          f"{HBM_BYTES_PER_S:.3g} B/s); cuda == cpu exactly")
+    return {"eager_ms": eager_ms, "graph_ms": graph_ms,
+            "bound_ms": bound_ms}
+
+
+def phase_guard(nodes: int, pods: int, card: str) -> None:
+    """A real CUDA out-of-memory error classifies as ``oom``; then a
+    KT_CHAOS_DEVICE cadence injects an OOM (bisected onto the next
+    ladder bucket) and a device loss (the breaker opens, the batch
+    requeues, a probe closes it) into a daemon drain: every pod still
+    binds as in the fault-free run, and no mode reads ``host``."""
+    import torch
+    from kubernetes_tpu_torch.chaos import device as chaos_device
+    from kubernetes_tpu_torch.engine.guard import DeviceFault, DeviceGuard
+    from kubernetes_tpu_torch.perf import synth
+    from kubernetes_tpu_torch.utils import metrics
+
+    free, total = torch.cuda.mem_get_info()
+    guard = DeviceGuard()
+    try:
+        with guard.watch("oneshot", inject=False):
+            torch.empty(free + (1 << 30), dtype=torch.uint8, device="cuda")
+        fail("an allocation above the card's free memory did not raise")
+    except DeviceFault as fault:
+        if fault.kind != "oom" or \
+                not isinstance(fault.orig, torch.cuda.OutOfMemoryError):
+            fail(f"a real CUDA OOM classified as {fault.kind}: {fault}")
+    torch.cuda.empty_cache()
+    print(f"phase 12: {card}: torch.empty of {free + (1 << 30)} bytes "
+          f"({free} free of {total}) inside guard.watch: "
+          f"torch.OutOfMemoryError classified as oom")
+
+    results = {}
+    for label in ("fault-free", "chaos"):
+        d = make_daemon(nodes, "cuda")
+        try:
+            guard = d.config.algorithm.guard
+            guard.probe_period_s = 0.5
+            modes = []
+            real = guard.solve_mode
+
+            def spy(_real=real):
+                mode = _real()
+                modes.append(mode)
+                return mode
+            guard.solve_mode = spy
+            before = {k: counter_total(metrics.DEVICE_FAULTS, k)
+                      for k in ("oom", "lost", "compile", "corrupt")}
+            bisects = counter_total(metrics.SOLVE_FALLBACKS, "bisect")
+            if label == "chaos":
+                chaos_device.install(chaos_device.DeviceChaos(
+                    chaos_device.parse_spec("oom@1:1,lost@2:1")))
+            plist = synth.make_pods(pods, profile="mixed", n_services=4)
+            for p in plist:
+                d.enqueue(p)
+            t0 = time.perf_counter()
+            if label == "fault-free":
+                while len(d.queue):
+                    d.schedule_pending(wait_first=False)
+            want = len(results["fault-free"]["bound"]) \
+                if label == "chaos" else d.config.binder.count()
+            while d.config.binder.count() < want:
+                if time.perf_counter() - t0 > 120:
+                    fail(f"{label}: only {d.config.binder.count()} of "
+                         f"{want} pods bound within 120 s")
+                d.schedule_pending(wait_first=True, timeout=0.1)
+            secs = time.perf_counter() - t0
+            chaos_device.install(None)
+            results[label] = {
+                "bound": dict(d.config.binder._bound), "modes": modes,
+                "secs": secs, "mode": guard.mode,
+                "faults": {k: counter_total(metrics.DEVICE_FAULTS, k) - v
+                           for k, v in before.items()},
+                "bisects": counter_total(metrics.SOLVE_FALLBACKS, "bisect")
+                - bisects}
+        finally:
+            chaos_device.install(None)
+            d.stop()
+    ok, ch = results["fault-free"], results["chaos"]
+    if ch["bound"] != ok["bound"]:
+        fail("chaos drain bound pods differently from the fault-free run")
+    if ch["faults"] != {"oom": 1, "lost": 1, "compile": 0, "corrupt": 0} \
+            or ch["bisects"] != 1 or ok["faults"] != dict.fromkeys(
+                ok["faults"], 0):
+        fail(f"fault counters {ch['faults']} bisects {ch['bisects']} "
+             f"(fault-free {ok['faults']})")
+    if "host" in ch["modes"] or not set(ch["modes"]) <= {
+            "device", "probe", "open"} or "probe" not in ch["modes"] or \
+            ch["mode"] != "device":
+        fail(f"guard modes {sorted(set(ch['modes']))}, final {ch['mode']}")
+    print(f"phase 12: {card}: daemon drain of {pods} pods onto {nodes} "
+          f"nodes under KT_CHAOS_DEVICE='oom@1:1,lost@2:1': all "
+          f"{len(ch['bound'])} bound in {ch['secs']:.3f} s (fault-free "
+          f"{ok['secs']:.3f} s), identical to the fault-free run; faults "
+          f"{ch['faults']}, 1 bisect, modes seen "
+          f"{sorted(set(ch['modes']))}, never host")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--nodes", type=int, default=5000)
@@ -893,6 +1345,8 @@ def main() -> int:
     ap.add_argument("--single-pods", type=int, default=512)
     ap.add_argument("--extender-nodes", type=int, default=5000)
     ap.add_argument("--extender-probes", type=int, default=200)
+    ap.add_argument("--factory-nodes", type=int, default=5000)
+    ap.add_argument("--factory-pods", type=int, default=4096)
     ap.add_argument("--kernels-only", action="store_true",
                     help="build and run phases 2, 2b and 6 only; prints "
                          "no result lines")
@@ -928,6 +1382,10 @@ def main() -> int:
     phase_profile(args.nodes, PROFILE_PODS)
     single = phase_single(args.single_nodes, args.single_pods, card)
     phase_extender(args.extender_nodes, args.extender_probes, card)
+    daemon = phase_daemon(args.nodes, args.pods, full, card)
+    phase_factory(args.factory_nodes, args.factory_pods, card)
+    phase_preemption(args.nodes, card)
+    phase_guard(args.nodes, args.factory_pods, card)
 
     kernels_line = [{
         "name": "select_rows",
@@ -938,6 +1396,8 @@ def main() -> int:
         # its body runs inlined in scan_chunk.
         "path": f"rich drain {args.rich_nodes} x {args.rich_pods}",
         "launches": rich["select_rows"],
+        "daemon_launches": {run: daemon[run]["counts"]["select_rows"]
+                            for run in ("a", "b")},
         "max_abs_err": kstats["max_abs_err"],
         "ms": kstats["ms"],
         "plain_ms": kstats["plain_ms"],
@@ -951,6 +1411,8 @@ def main() -> int:
         "replaces": "kubernetes_tpu/engine/solver.py:1397",
         "path": f"north-star drain {args.nodes} x {args.pods}",
         "launches": full["launches"],
+        "daemon_launches": {run: daemon[run]["counts"]["scan_chunk"]
+                            for run in ("a", "b")},
         "max_abs_err": sstats["max_abs_err"],
         "ms": sstats["ms"],
         "plain_ms": sstats["plain_ms"],
@@ -965,6 +1427,8 @@ def main() -> int:
         "path": f"schedule(pod) x {args.single_pods + 1} at "
                 f"{args.single_nodes} nodes",
         "launches": single["launches"],
+        "daemon_launches": {run: daemon[run]["counts"]["select_hosts"]
+                            for run in ("a", "b")},
         "max_abs_err": hstats["max_abs_err"],
         "ms": hstats["ms"],
         "kernel_ms": hstats["kernel_ms"],

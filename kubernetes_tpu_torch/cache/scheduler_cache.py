@@ -19,10 +19,13 @@ from __future__ import annotations
 import threading
 import time
 from dataclasses import dataclass
-from typing import Callable, Optional
+from typing import TYPE_CHECKING, Callable, Optional
 
 from kubernetes_tpu_torch.api import types as api
 from kubernetes_tpu_torch.features import compiler as fc
+
+if TYPE_CHECKING:  # torch-free at import: the cache stays host-only
+    from kubernetes_tpu_torch.engine.workloads.preemption import VictimTable
 
 
 def _locked(fn):
@@ -524,13 +527,43 @@ class SchedulerCache:
         return self.topo_domain_counts_bulk(
             [(namespace, selector, key_col)])[0]
 
+    @_locked
     def victim_table(self, max_victims: int,
-                     exclude: frozenset = frozenset()) -> None:
-        """The preemption solve's victim table is not part of this
-        package yet (it lands with the preemption slice)."""
-        raise NotImplementedError(
-            "victim_table: preemption is not ported to the PyTorch "
-            "package yet (a later slice)")
+                     exclude: frozenset = frozenset()) -> "VictimTable":
+        """Per-node victim candidates for the preemption solve: every
+        tracked pod (assumed or confirmed — both hold capacity), sorted
+        ascending by (priority, key) so the solve's prefix-k IS the k
+        cheapest victims, padded to a pow2 victim axis.  At most
+        ``max_victims`` candidates per node are FILLED (the pow2 padding
+        is rows, not extra victims).  ``exclude``: pod keys never
+        eligible (the daemon protects the current drain's own
+        placements).  Returns a workloads.preemption.VictimTable."""
+        import numpy as np
+
+        from kubernetes_tpu_torch.engine.workloads.preemption import \
+            VictimTable
+        self._ensure_tensors()
+        n = len(self._node_order)
+        v = 1 << max(max_victims - 1, 0).bit_length()
+        req = np.zeros((n, v, 4), np.int32)
+        prio = np.zeros((n, v), np.int32)
+        valid = np.zeros((n, v), bool)
+        keys: list[list[str]] = [[] for _ in range(n)]
+        for name, podmap in self._node_pods.items():
+            idx = self._nt.name_to_idx.get(name)
+            if idx is None or not podmap:
+                continue
+            cands = sorted(
+                (p for p in podmap.values() if p.key not in exclude),
+                key=lambda p: (p.effective_priority, p.key))
+            for j, pod in enumerate(cands[:max_victims]):
+                # The canonical (cpu, mem_mib ceil, gpu, 1) row, the same
+                # encoding the tensor solve uses.
+                req[idx, j] = fc.pod_resource_row(pod)
+                prio[idx, j] = pod.effective_priority
+                valid[idx, j] = True
+                keys[idx].append(pod.key)
+        return VictimTable(req=req, prio=prio, valid=valid, keys=keys)
 
     # ---- churn & recovery hooks (recovery.py, verifier.py) -------------
 

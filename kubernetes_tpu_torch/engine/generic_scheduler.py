@@ -6,17 +6,21 @@ Counterpart of ``kubernetes_tpu/engine/generic_scheduler.py``:
 device solve, ``schedule_batch_stream`` in equal chunks with
 device-carried state, ``schedule`` places one pod (the reference's
 Schedule, with policy extenders called over HTTP) and
-``explain_failures`` reports why pods fit nowhere.  All are
-decision-identical to the JAX package.
+``explain_failures`` reports why pods fit nowhere, and
+``find_preemptions`` picks minimal-cost victim sets for unschedulable
+priority pods.  All are decision-identical to the JAX package.
 
-On the card there is no host engine to fall back to: a device error
-propagates, and a non-finite score plane on the single-pod path (the JAX
-package's sanity gate, ``guard.checked_scores``) raises
-:class:`ScoreGateError`.
+Every device solve site runs inside the device guard
+(``engine/guard.py``: ``watch`` classifies CUDA faults, every assignment
+readback passes ``checked_readback``), under ``devicestats.live_path``
+and a ``stage`` span.  There is no host engine to fall back to: a
+classified fault surfaces as ``DeviceFault`` (the daemon's pipeline
+retries, bisects or requeues), and a non-finite score plane on the
+single-pod path raises :class:`ScoreGateError`.
 
 Not in this package yet (each raises ``NotImplementedError``): pods with
-topologySpreadConstraints (the topology slice), the joint solve
-(``joint=True``) and ``find_preemptions``.
+topologySpreadConstraints (the topology slice) and the joint solve
+(``joint=True``).
 """
 
 from __future__ import annotations
@@ -35,17 +39,20 @@ from kubernetes_tpu_torch.api.policy import (Policy, default_provider,
                                              service_affinity_labels,
                                              service_anti_affinity_labels)
 from kubernetes_tpu_torch.cache.scheduler_cache import SchedulerCache
+from kubernetes_tpu_torch.engine import devicestats
+from kubernetes_tpu_torch.engine import guard as guard_mod
 from kubernetes_tpu_torch.engine import solver as sv
 from kubernetes_tpu_torch.engine.extender_client import (ExtenderUnavailable,
                                                          HTTPExtender)
 from kubernetes_tpu_torch.features import batch as fb
+from kubernetes_tpu_torch.features import compiler as fc
 from kubernetes_tpu_torch.features import padcap
 from kubernetes_tpu_torch.features.volumes import compile_volsvc
 from kubernetes_tpu_torch.ops import combine
 from kubernetes_tpu_torch.utils import device as device_mod
 from kubernetes_tpu_torch.utils import metrics
 from kubernetes_tpu_torch.utils.logging import get_logger
-from kubernetes_tpu_torch.utils.trace import Trace
+from kubernetes_tpu_torch.utils.trace import Trace, stage
 
 log = get_logger("engine")
 
@@ -62,9 +69,8 @@ class FitError(Exception):
         super().__init__(f"pod ({pod.name}) failed to fit in any node")
 
 
-class ScoreGateError(RuntimeError):
-    """The single-pod sanity gate: the score plane held a NaN or an
-    infinity, which would select garbage."""
+# The single-pod sanity gate's error (a ``corrupt`` DeviceFault).
+ScoreGateError = guard_mod.ScoreGateError
 
 
 @dataclass
@@ -138,7 +144,7 @@ class Listers:
         return out
 
 
-def _not_ported(what: str, slice_name: str) -> NotImplementedError:
+def not_ported(what: str, slice_name: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported to kubernetes_tpu_torch yet ({slice_name} "
         f"slice); use kubernetes_tpu for it")
@@ -158,6 +164,12 @@ class GenericScheduler:
         # Device-resident cluster mirror: per drain only the cache's
         # dirty rows are scattered into the resident arrays.
         self.resident = sv.ResidentCluster(self.device)
+        devicestats.track_device(self.device)
+        # Guarded device execution (engine/guard.py): every solve site
+        # runs inside the guard so CUDA faults classify, count and
+        # recover (OOM -> evict + bisect; repeated or lost -> the fault
+        # surfaces and the daemon requeues the batch).
+        self.guard = guard_mod.DeviceGuard(evict_fn=self.resident.invalidate)
         self.extenders = [HTTPExtender(cfg) for cfg in self.policy.extenders]
         self.last_node_index = np.uint32(0)
         # Monotonic compile state (features.padcap): table-axis capacities
@@ -193,37 +205,47 @@ class GenericScheduler:
         so every read sees one generation."""
         if any(api.TOPOLOGY_SPREAD_ANNOTATION_KEY in pod.annotations
                for pod in pods):
-            raise _not_ported("topologySpreadConstraints", "topology spread")
+            raise not_ported("topologySpreadConstraints", "topology spread")
         with self.cache.lock:
-            nt, agg, ep, nodes = self.cache.snapshot()
-            # Tag for the device-aggregate handoff: the snapshot the solve
-            # starts from (assume_pods validates nothing changed since).
-            self._snapshot_generation = self.cache.generation
-            volsvc = compile_volsvc(
-                pods, nodes, nt.schedulable,
-                volume_pods=self.cache.volume_pods(),
-                listers=self.listers,
-                service_affinity_labels=service_affinity_labels(self.policy),
-                service_anti_affinity_labels=(
-                    service_anti_affinity_labels(self.policy)),
-                node_label_args=node_label_args(self.policy),
-                node_label_prio_args=node_label_prio_args(self.policy),
-                service_peers=self.cache.service_peer_nodes,
-                first_peer=self.cache.first_peer_node)
-            batch = fb.compile_batch(
-                pods, nt, self.cache.space, ep=ep, nodes=nodes,
-                spread_selectors=self.listers.spread_selectors,
-                controller_refs=self.listers.controller_refs,
-                affinity_pods=self.cache.affinity_pods(),
-                hard_pod_affinity_weight=(
-                    self.policy.hard_pod_affinity_symmetric_weight),
-                volsvc=volsvc)
-            batch = padcap.apply_caps(batch, self._axis_caps)
-            db = sv.device_batch(batch, self.device)
-            dc = self.resident.sync(nt, agg, self.cache.space,
-                                    self.cache.take_dirty_rows(),
-                                    self.cache.tensor_epoch)
+            with stage("snapshot", pods=len(pods)):
+                nt, agg, ep, nodes = self.cache.snapshot()
+                # Tag for the device-aggregate handoff: the snapshot the
+                # solve starts from (assume_pods validates nothing
+                # changed since).
+                self._snapshot_generation = self.cache.generation
+            with stage("compile", pods=len(pods)):
+                batch = self._compile_batch(pods, nt, ep, nodes)
+            with stage("transfer"):
+                db = sv.device_batch(batch, self.device)
+                dc = self.resident.sync(nt, agg, self.cache.space,
+                                        self.cache.take_dirty_rows(),
+                                        self.cache.tensor_epoch)
         return batch, db, dc, nt
+
+    def _compile_batch(self, pods: list[api.Pod], nt, ep,
+                       nodes) -> fb.PodBatch:
+        """The NumPy feature compile of one batch (caller holds the cache
+        lock)."""
+        volsvc = compile_volsvc(
+            pods, nodes, nt.schedulable,
+            volume_pods=self.cache.volume_pods(),
+            listers=self.listers,
+            service_affinity_labels=service_affinity_labels(self.policy),
+            service_anti_affinity_labels=(
+                service_anti_affinity_labels(self.policy)),
+            node_label_args=node_label_args(self.policy),
+            node_label_prio_args=node_label_prio_args(self.policy),
+            service_peers=self.cache.service_peer_nodes,
+            first_peer=self.cache.first_peer_node)
+        batch = fb.compile_batch(
+            pods, nt, self.cache.space, ep=ep, nodes=nodes,
+            spread_selectors=self.listers.spread_selectors,
+            controller_refs=self.listers.controller_refs,
+            affinity_pods=self.cache.affinity_pods(),
+            hard_pod_affinity_weight=(
+                self.policy.hard_pod_affinity_symmetric_weight),
+            volsvc=volsvc)
+        return padcap.apply_caps(batch, self._axis_caps)
 
     # -- single-pod path (Schedule, generic_scheduler.go:78) -------------
 
@@ -232,7 +254,18 @@ class GenericScheduler:
         the current cache, then selectHost (the CUDA kernel of
         ``ops/combine.py`` on the card), or the extenders' filter and
         prioritize when the policy names any.  Raises FitError when no
-        node fits, ScoreGateError on a non-finite score plane."""
+        node fits, ScoreGateError on a non-finite score plane, and
+        DeviceFault on any other classified device fault (the guard has
+        counted it; the caller requeues the pod)."""
+        try:
+            with devicestats.live_path("single_pod"), \
+                    self.guard.watch("single_pod"):
+                return self._schedule_device(pod)
+        except guard_mod.DeviceFault as fault:
+            self.guard.recover(fault, can_bisect=False)
+            raise
+
+    def _schedule_device(self, pod: api.Pod) -> str:
         trace = Trace(f"Scheduling {pod.namespace}/{pod.name}")
         if not self.cache.nodes():
             raise FitError(pod, {})
@@ -244,7 +277,8 @@ class GenericScheduler:
         if self.extenders:
             feasible_np = feasible[0].cpu().numpy()
             scores_np = scores[0].cpu().numpy()
-            self._check_scores(np.isfinite(scores_np).all())
+            self.guard.checked_scores("single_pod",
+                                      bool(np.isfinite(scores_np).all()))
             if not feasible_np.any():
                 raise self._fit_error(pod, db, dc, nt)
             host = self._schedule_with_extenders(pod, nt, feasible_np,
@@ -257,17 +291,12 @@ class GenericScheduler:
         picked, new_last, finite = torch.cat(
             [choice.long(), new_last,
              torch.isfinite(scores).all().long()[None]]).cpu().tolist()
-        self._check_scores(finite)
+        self.guard.checked_scores("single_pod", bool(finite))
         if picked < 0:
             raise self._fit_error(pod, db, dc, nt)
         self.last_node_index = np.uint32(new_last & _MASK32)
         trace.log_if_long()
         return nt.names[picked]
-
-    @staticmethod
-    def _check_scores(finite: bool) -> None:
-        if not finite:
-            raise ScoreGateError("sanity gate: NaN/inf score plane")
 
     def _fit_error(self, pod: api.Pod, db: sv.DeviceBatch,
                    dc: sv.DeviceCluster, nt) -> FitError:
@@ -399,11 +428,110 @@ class GenericScheduler:
                                for j in top_idx]}
         return out
 
-    # -- entry points not in this package yet ----------------------------
+    # Preemption decisions computed per call: the masks pass pads to
+    # this many pods (the EXPLAIN_CAP discipline) and the per-decision
+    # eviction blast radius is bounded separately
+    # (workloads.preemption.MAX_VICTIMS).
+    PREEMPT_CAP = 16
 
     def find_preemptions(self, pods: list[api.Pod],
                          protected: frozenset = frozenset()) -> list:
-        raise _not_ported("find_preemptions", "preemption")
+        """Minimal-cost victim sets for unschedulable priority pods — the
+        second batched solve (engine/workloads/preemption.py).
+
+        Per pod, in priority order: one ``victim_solve`` over the (nodes
+        x victims) table picks the cheapest feasible eviction prefix per
+        node; the host takes the (victim count, victim priority sum, node
+        index) argmin.  Decisions within one call see each other through
+        host-side overlays (victims already claimed are consumed, the
+        preemptor's own request charged), so two pods never nominate the
+        same victim.  ``protected`` keys are never victims.  The caller
+        executes the decisions (evict -> assume -> bind); it must have
+        ASSUMED the batch's placements first so the aggregates this solve
+        reads include them."""
+        from kubernetes_tpu_torch.engine.workloads import preemption as pre
+        pods = [p for p in pods if p.effective_priority > 0]
+        pods.sort(key=lambda p: (-p.effective_priority, p.key))
+        pods = pods[:self.PREEMPT_CAP]
+        if not pods or not self.cache.nodes():
+            return []
+        padded = list(pods) + [
+            api.Pod(name=f"__preempt-pad-{i}", namespace="__pad__")
+            for i in range(self.PREEMPT_CAP - len(pods))]
+        batch, db, dc, nt = self._compile(padded)
+        # Non-resource predicate rows: victims free resources, nothing
+        # else — a node that only becomes selector/taint-feasible after
+        # eviction is never nominated (conservative).
+        masks = {name: m.cpu().numpy() for name, m in
+                 self.solver.masks(db, dc).items()}
+        base = np.broadcast_to(np.asarray(nt.schedulable, bool),
+                               (len(padded), nt.alloc.shape[0])).copy()
+        for name, m in masks.items():
+            if name not in ("PodFitsResources",):
+                base &= m
+        with self.cache.lock:
+            _, agg, _, _ = self.cache.snapshot()
+            vt = self.cache.victim_table(pre.MAX_VICTIMS,
+                                         exclude=protected)
+            requested = agg.requested.copy()
+        alloc = nt.alloc
+        vic_req, vic_prio, vic_valid = (vt.req.copy(), vt.prio.copy(),
+                                        vt.valid.copy())
+        vic_keys = [list(k) for k in vt.keys]
+        decisions = []
+        with devicestats.live_path("victim"), self.guard.watch("victim"):
+            self._find_preemptions_inner(
+                pods, alloc, requested, base, vic_req, vic_prio,
+                vic_valid, vic_keys, nt, decisions)
+        return decisions
+
+    def _find_preemptions_inner(self, pods, alloc, requested, base,
+                                vic_req, vic_prio, vic_valid, vic_keys,
+                                nt, decisions) -> None:
+        from kubernetes_tpu_torch.engine.workloads import preemption as pre
+        dev = self.device
+
+        def put(a: np.ndarray) -> torch.Tensor:
+            return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+        alloc_d = put(np.asarray(alloc, np.int32))
+        for i, pod in enumerate(pods):
+            pod_req = fc.pod_resource_row(pod)
+            with stage("solve", pods=1, mode="victim"):
+                k_min, cost, feas = pre.victim_solve(
+                    alloc_d, put(requested.astype(np.int32)),
+                    put(base[i]), put(vic_req), put(vic_prio),
+                    put(vic_valid), put(np.asarray(pod_req, np.int32)),
+                    torch.tensor(bool(pod_req[0] == pod_req[1]
+                                      == pod_req[2] == 0), device=dev),
+                    torch.tensor(pod.effective_priority,
+                                 dtype=torch.int32, device=dev))
+            with stage("readback", pods=1):
+                # One device->host copy of the three [N] results.
+                host = torch.stack([k_min, cost, feas.to(torch.int32)]
+                                   ).cpu().numpy()
+                devicestats.record_transfer("readback", host.nbytes)
+            k_min, cost, feas = host[0], host[1], host[2].astype(bool)
+            n_idx = pre.pick_node(k_min, cost, feas)
+            if n_idx is None:
+                continue
+            k = int(k_min[n_idx])
+            victims = vic_keys[n_idx][:k]
+            decisions.append(pre.PreemptionDecision(
+                pod_key=pod.key, node=nt.names[n_idx], node_idx=n_idx,
+                victims=victims, prio_cost=int(cost[n_idx])))
+            # Overlay for later pods in this call: free the claimed
+            # victims' rows, charge the preemptor, shift the table.
+            freed = vic_req[n_idx, :k].sum(axis=0)
+            requested[n_idx] = requested[n_idx] - freed + pod_req
+            if k:
+                vic_req[n_idx] = np.concatenate(
+                    [vic_req[n_idx, k:], np.zeros((k, 4), np.int32)])
+                vic_prio[n_idx] = np.concatenate(
+                    [vic_prio[n_idx, k:], np.zeros(k, np.int32)])
+                vic_valid[n_idx] = np.concatenate(
+                    [vic_valid[n_idx, k:], np.zeros(k, bool)])
+                vic_keys[n_idx] = vic_keys[n_idx][k:]
 
     # -- batched path ----------------------------------------------------
 
@@ -424,15 +552,17 @@ class GenericScheduler:
         if self.extenders:
             return self._schedule_batch_via_extenders(pods)
         if joint:
-            raise _not_ported("the joint solve (joint=True)", "joint")
+            raise not_ported("the joint solve (joint=True)", "joint")
         real_p = len(pods)
         live = None
         if pad_to > real_p:
             pods = list(pods) + [
                 api.Pod(name=f"__pad-{i}", namespace="__pad__")
                 for i in range(pad_to - real_p)]
-        batch, db, dc, nt = self._compile(pods)
+        with self.guard.watch("oneshot", inject=False):
+            batch, db, dc, nt = self._compile(pods)
         flags = self._pinned_flags(batch)
+        live_np = None
         if pad_to > real_p:
             live_np = np.zeros(len(pods), bool)
             live_np[:real_p] = True
@@ -441,9 +571,20 @@ class GenericScheduler:
         # One packed device->host copy for the whole drain: choices + tie
         # counter + final aggregates.
         p, n = len(pods), sv.cluster_nodes(dc)
-        host = self.solver.solve_sequential_packed(
-            db, dc, self._counter(), flags, live=live).cpu().numpy()
-        rows = host[:real_p].tolist()
+        with devicestats.live_path("oneshot"), \
+                self.guard.watch("oneshot"), \
+                stage("solve", pods=p, mode="sequential"):
+            packed = self.solver.solve_sequential_packed(
+                db, dc, self._counter(), flags, live=live)
+        with stage("readback", pods=p):
+            with self.guard.watch("oneshot", inject=False):
+                host = packed.cpu().numpy()
+            devicestats.record_transfer("readback", host.nbytes)
+        choices = self.guard.checked_readback(
+            "oneshot", host[:p], n, live=live_np, alloc=nt.alloc,
+            requests=np.asarray(batch.request),
+            keys_fn=lambda: [pd.key for pd in pods[:real_p]])
+        rows = choices[:real_p].tolist()
         self.last_node_index = np.uint32(int(host[p]) & _MASK32)
         # Device-aggregate handoff: the scan's final requested/nonzero
         # equal the snapshot plus every in-batch placement, so
@@ -505,29 +646,57 @@ class GenericScheduler:
         if padded > p:
             all_pods += [api.Pod(name=f"__pad-{i}", namespace="__pad__")
                          for i in range(padded - p)]
-        batch, db, dc, nt = self._compile(all_pods)
+        with self.guard.watch("stream", inject=False):
+            batch, db, dc, nt = self._compile(all_pods)
         flags = self._pinned_flags(batch)
         counter = self._counter()
         carry = None
+        n = sv.cluster_nodes(dc)
         live_np = np.zeros(padded, bool)
         live_np[:p] = True
         live_all = torch.from_numpy(live_np).to(self.device)
+        requests = np.asarray(batch.request)
+        # The readback of a deferred chunk runs on the commit worker
+        # thread: it is ordered on the stream that ran the chunk.
+        launch_stream = torch.cuda.current_stream(self.device) \
+            if self.device.type == "cuda" else None
         pending: list[tuple[int, torch.Tensor]] = []
 
         def emit(start: int, choices: torch.Tensor) -> tuple[list, list]:
-            rows = choices.cpu().numpy()  # blocks on this chunk
+            with stage("readback", chunk_at=start):
+                with self.guard.watch("stream", inject=False):
+                    if launch_stream is not None:
+                        with torch.cuda.stream(launch_stream):
+                            rows = choices.cpu().numpy()  # blocks
+                    else:
+                        rows = choices.cpu().numpy()
+                devicestats.record_transfer("readback", rows.nbytes)
             stop = min(start + chunk_size, p)
+            chunk_pods = pods[start:stop]
+            # Post-solve sanity gate: a corrupt chunk readback requeues
+            # the chunk (DeviceFault through the commit worker) instead
+            # of binding garbage.
+            rows = self.guard.checked_readback(
+                "stream", rows, n, live=live_np[start:start + chunk_size],
+                alloc=nt.alloc,
+                requests=requests[start:start + chunk_size],
+                keys_fn=lambda: [pd.key for pd in chunk_pods])
             placements = [nt.names[int(c)] if c >= 0 else None
                           for c in rows[: stop - start]]
-            return pods[start:stop], placements
+            return chunk_pods, placements
 
         for start in range(0, padded, chunk_size):
             # Pod-axis views of the device-resident batch: slicing on the
             # device costs no transfer.
             db_k = sv.slice_pod_axis(db, start, start + chunk_size)
             live = live_all[start:start + chunk_size]
-            choices_k, counter, carry = self.solver._solve_scan(
-                db_k, dc, counter, None, flags, carry, live, None)
+            # The launch is async: device time surfaces in the chunk's
+            # readback, which is what keeps the pipeline overlapped.
+            with devicestats.live_path("stream"), \
+                    self.guard.watch("stream"), \
+                    stage("solve", chunk_at=start, mode="stream"):
+                choices_k, counter, carry = self.solver._solve_scan(
+                    db_k, dc, counter, None, flags, carry, live, None)
             pending.append((start, choices_k))
             if len(pending) > 1:
                 s_k, c_k = pending.pop(0)

@@ -25,6 +25,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -75,7 +76,12 @@ def build(verbose: bool = False) -> tuple[Path, str]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
     cmd = nvcc_command(tmp, verbose)
+    t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
+    # Every build is visible to the post-prewarm watchdog (the guard
+    # classifies the failure below as a ``compile`` fault).
+    from kubernetes_tpu_torch.engine import devicestats
+    devicestats.record_build(time.perf_counter() - t0)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed ({proc.returncode}): "
                            f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")

@@ -46,6 +46,7 @@ from kubernetes_tpu_torch.api.policy import (DEFAULT_MAX_EBS_VOLUMES,
                                              canonical_predicate_name,
                                              canonical_priority_name,
                                              expand_predicates)
+from kubernetes_tpu_torch.engine import devicestats
 from kubernetes_tpu_torch.engine import fused as fused_mod
 from kubernetes_tpu_torch.engine import scan as scan_mod
 from kubernetes_tpu_torch.features.batch import PodBatch
@@ -314,6 +315,10 @@ class ResidentCluster:
         self.stats = {"full_syncs": 0, "row_syncs": 0, "rows_scattered": 0}
 
     def invalidate(self) -> None:
+        """Drop the resident tensors (the guard's OOM eviction).  A
+        queued chunk that still reads them keeps its own references, and
+        the caching allocator reuses a freed block only for work ordered
+        after it on the same stream, so no in-flight read is clobbered."""
         self.dc = None
 
     @staticmethod
@@ -338,6 +343,8 @@ class ResidentCluster:
             self._sig = sig
             self._epoch = epoch
             self.stats["full_syncs"] += 1
+            devicestats.record_transfer("full_upload",
+                                       devicestats.nbytes(self.dc))
             return self.dc
         if not dirty:
             return self.dc
@@ -368,6 +375,8 @@ class ResidentCluster:
                                   for arr, new in zip(self.dc, rows_d)])
         self.stats["row_syncs"] += 1
         self.stats["rows_scattered"] += len(dirty)
+        devicestats.record_transfer("scatter", idx.nbytes +
+                                    devicestats.nbytes(rows))
         return self.dc
 
 

@@ -33,41 +33,109 @@ REGISTRY: dict[str, tuple[str, str]] = {
     "KT_LOCKTRACE_HOLD_MS": (
         "100", "Lock hold duration past which locktrace records a "
                "long-hold"),
+    # -- the device guard (engine/guard.py) and its fault injector
+    "KT_GUARD": ("1", "Guarded device execution; 0 = raw solves"),
+    "KT_GUARD_BREAKER": (
+        "3", "Consecutive same-kind device faults before the breaker "
+             "opens"),
+    "KT_GUARD_PROBE_S": (
+        "15", "Seconds between device probe drains while the breaker is "
+              "open"),
+    "KT_GUARD_ROUNDS": ("6", "Bound on guard recovery rounds per drain"),
+    "KT_GUARD_CAP_RESET": (
+        "4", "Device-healthy drains before a bisected bucket cap lifts"),
+    "KT_HBM_WATERMARK": (
+        "0", "Proactive device-memory ceiling in bytes (0 = off): past "
+             "it, cap drains at the ladder floor and evict"),
+    "KT_CHAOS_DEVICE": (
+        "", "Device fault-injection spec, e.g. 'oom@7,lost@50:1' "
+            "(chaos/device.py)"),
+    "KT_PREEMPT_MAX_VICTIMS": (
+        "16", "Victim-table depth per node for the preemption solve"),
+    # -- the scheduler daemon
+    "KT_STREAM_CHUNK": (
+        "0", "Stream-path chunk size; 0 = one-shot solves for drains of "
+             "4,096 pods or more"),
+    "KT_STREAM_MIN_BUCKET": (
+        "", "Smallest drain bucket (default Scheduler.STREAM_MIN_BUCKET); "
+            "read once at daemon startup"),
+    "KT_PREWARM": (
+        "0", "Build the kernels and launch each at every ladder bucket "
+             "before the queue opens"),
+    "KT_RECOVERY": (
+        "1", "Startup cache/queue reconciliation against one store "
+             "relist"),
+    "KT_PIPELINE_WINDOW": (
+        "2", "Overlapped solve/commit in-flight chunk window (0 = "
+             "synchronous)"),
+    "KT_BATCH_DEADLINE_MS": (
+        "", "Deadline micro-batching window in ms (empty/0 = off)"),
+    "KT_COALESCE": ("", "Deprecated alias of KT_BATCH_DEADLINE_MS, in "
+                        "seconds"),
+    "KT_QUEUE_HIGH_WATERMARK": (
+        "65536", "Queue depth past which drains degrade to bounded pops "
+                 "(0 = off)"),
+    "KT_POD_BACKOFF_S": ("1", "Initial per-pod requeue backoff in "
+                              "seconds"),
+    "KT_POD_BACKOFF_MAX_S": ("60", "Per-pod requeue backoff ceiling in "
+                                   "seconds"),
+    "KT_FLIGHT_DIR": (
+        "", "Directory persisting the decision flight ring across "
+            "restarts"),
+    "KT_SLO_PERIOD": ("5", "SLO burn monitor tick in seconds (0 = off)"),
+    "KT_SLO_MS": ("1000", "Decision-latency SLO threshold in ms"),
+    "KT_SLO_OBJECTIVE": (
+        "99", "SLO objective in percent of decisions inside KT_SLO_MS"),
+    "KT_BIND_CAPACITY": (
+        "1", "Store-side bind capacity validation (overcommit binds "
+             "conflict)"),
+    # -- options of later slices: each raises NotImplementedError when
+    # set (scheduler/factory.py)
+    "KT_HA_SHARDS": ("0", "Namespace-hash shard count (HA slice)"),
+    "KT_TENANTS": ("", "Tenant set of the solver service (tenancy "
+                       "slice)"),
+    "KT_DEFRAG": ("0", "Background defragmentation (defrag slice)"),
+    "KT_VERIFY_PERIOD": (
+        "0", "Resident-state invariant checker cadence (verifier "
+             "slice)"),
 }
 
 _TRUE = ("1", "true", "yes", "on")
 _FALSE = ("0", "false", "no", "off")
 
 
-def get(name: str) -> str:
-    """The raw string value: environment, else the declared default."""
+def get(name: str, default: "str | None" = None) -> str:
+    """The raw string value: environment, else ``default`` (a knob whose
+    default is computed at its call site), else the declared default."""
     try:
-        default = REGISTRY[name][0]
+        declared = REGISTRY[name][0]
     except KeyError:
         raise KeyError(f"{name} is not a declared knob of "
                        f"kubernetes_tpu_torch.utils.knobs") from None
     raw = os.environ.get(name)
     if raw is not None and raw.strip():
         return raw.strip()
-    return default
+    return declared if default is None else default
 
 
-def get_int(name: str) -> int:
-    raw = get(name)
+def get_int(name: str, default: "int | None" = None) -> int:
+    raw = get(name, None if default is None else str(default))
     try:
-        return int(float(raw))
+        return int(float(raw)) if raw else 0
     except ValueError:
-        fallback = int(REGISTRY[name][0])
+        fallback = default if default is not None else \
+            int(float(REGISTRY[name][0] or "0"))
         log.warning("bad %s=%r; using %s", name, raw, fallback)
         return fallback
 
 
-def get_float(name: str) -> float:
-    raw = get(name)
+def get_float(name: str, default: "float | None" = None) -> float:
+    raw = get(name, None if default is None else str(default))
     try:
-        return float(raw)
+        return float(raw) if raw else 0.0
     except ValueError:
-        fallback = float(REGISTRY[name][0])
+        fallback = default if default is not None else \
+            float(REGISTRY[name][0] or "0")
         log.warning("bad %s=%r; using %s", name, raw, fallback)
         return fallback
 

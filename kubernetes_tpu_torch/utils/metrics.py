@@ -605,45 +605,41 @@ DEVICE_TRANSFERS = register(Counter(
     labelnames=("cause",)))
 DEVICE_HBM_LIVE_BYTES = register(Gauge(
     "scheduler_device_hbm_live_bytes",
-    "Device memory held by live arrays (device.memory_stats when the "
-    "backend reports it, else the jax.live_arrays() fallback)"))
+    "Device memory held by live tensors on the scheduler's device "
+    "(torch.cuda.memory_allocated; 0 on a CPU device)"))
 DEVICE_HBM_PEAK_BYTES = register(Gauge(
     "scheduler_device_hbm_peak_bytes",
-    "Peak observed device memory (backend peak_bytes_in_use when "
-    "available, else the high-water mark of sampled live bytes)"))
+    "Peak device memory on the scheduler's device "
+    "(torch.cuda.max_memory_allocated; 0 on a CPU device)"))
 POST_PREWARM_COMPILES = register(Counter(
     "scheduler_post_prewarm_compiles_total",
-    "XLA compilations observed AFTER prewarm() armed the recompile "
-    "watchdog, by live path — every one is a compile stall on the "
-    "serving clock that the bucket-ladder prewarm should have traced "
-    "(the bench ratchet fails on any in the density run)",
+    "Kernel-library builds (nvcc) observed AFTER prewarm() armed the "
+    "watchdog, by live path — every one is a build stall on the "
+    "serving clock that the prewarm should have paid",
     labelnames=("path",)))
 # Device fault-tolerance plane (engine/guard.py): the guarded-execution
-# layer's taxonomy, recovery ladder, and sanity gate.  A control plane
-# that trusts a TPU with its decisions must keep scheduling when the TPU
-# misbehaves — these count every step of that story.
+# layer's taxonomy, recovery ladder, and sanity gate.
 DEVICE_FAULTS = register(Counter(
     "scheduler_device_faults_total",
-    "Classified accelerator faults at the guarded solve sites, by kind: "
-    "oom (HBM RESOURCE_EXHAUSTED), compile (XLA compilation failure), "
-    "lost (device in an error state / runtime gone), corrupt (readback "
+    "Classified device faults at the guarded solve sites, by kind: "
+    "oom (CUDA out of memory), compile (nvcc build failure), lost "
+    "(sticky CUDA error or kernel launch failure), corrupt (readback "
     "rejected by the post-solve sanity gate)",
     labelnames=("kind",)))
 SOLVE_FALLBACKS = register(Counter(
     "scheduler_solve_fallback_total",
     "Recovery-ladder fallbacks: bisect (batch re-solved in chunks at "
     "the next smaller pre-warmed bucket after OOM + resident-array "
-    "eviction) or host (circuit breaker open; drain ran on the NumPy "
-    "host fallback engine)",
+    "eviction)",
     labelnames=("mode",)))
 ENGINE_MODE = register(Gauge(
     "scheduler_engine_mode",
-    "Which solver the drain pipeline routes to: 0 = device (the TPU "
-    "scan), 1 = host (breaker open, NumPy fallback engine; probe solves "
-    "re-promote to 0 when the device answers again)"))
+    "The device breaker: 0 = closed (drains solve on the device), 1 = "
+    "open (drains requeue until a probe drain succeeds)"))
 HBM_WATERMARK_TRIPS = register(Counter(
     "scheduler_hbm_watermark_trips_total",
-    "Times live HBM crossed KT_HBM_WATERMARK and bucket growth was "
+    "Times live device memory crossed KT_HBM_WATERMARK and bucket "
+    "growth was "
     "proactively capped at the ladder floor (resident arrays evicted) "
     "BEFORE the allocator could throw"))
 GATE_REJECTS = register(Counter(

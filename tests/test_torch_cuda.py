@@ -2,8 +2,9 @@
 against its plain version, the scan kernel against its plain version (the
 step loop) on every case of ``perf/scan_check.py``, the single-pod
 select kernel (``kt_select_hosts``) against ``select_hosts_plain``, and
-drains, single-pod decisions and extender responses on ``cuda`` against
-the same on ``cpu``.  They skip themselves where
+drains, single-pod decisions, extender responses, the scheduler daemon
+and the preemption victim solve on ``cuda`` against the same on ``cpu``,
+and a real CUDA out-of-memory error through the device guard.  They skip themselves where
 there is no CUDA device; on the card run ``python -m pytest
 tests/test_torch_cuda.py -m cuda -q --noconftest``.  This file imports no
 JAX, so it also runs where only the port's dependencies are installed.
@@ -228,3 +229,75 @@ def test_cuda_extender_core_matches_cpu(cuda):
         for verb in ("filter", "prioritize"):
             assert cores["cuda"].handle(verb, body) == \
                 cores["cpu"].handle(verb, body), (k, verb)
+
+
+def _daemon(dev: str, n_nodes: int, **attrs):
+    from kubernetes_tpu_torch.scheduler.binder import InMemoryBinder
+    from kubernetes_tpu_torch.scheduler.scheduler import (Scheduler,
+                                                          SchedulerConfig)
+    eng, _ = synth.make_rig(n_nodes, 0, profile="mixed", device=dev)
+    d = Scheduler(SchedulerConfig(algorithm=eng, binder=InMemoryBinder(),
+                                  async_bind=False))
+    for k, v in attrs.items():
+        setattr(d, k, v)
+    return d
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("attrs", [{}, {"STREAM_THRESHOLD": 256,
+                                        "stream_chunk": 256},
+                                   {"_PAD_LIMIT": 512}])
+def test_cuda_daemon_matches_cpu_daemon(cuda, attrs):
+    out = {}
+    for dev in ("cuda", "cpu"):
+        d = _daemon(dev, 300, **attrs)
+        try:
+            pods = synth.make_pods(700, profile="mixed", n_services=4)
+            for p in pods:
+                d.enqueue(p)
+            while len(d.queue):
+                d.schedule_pending(wait_first=False)
+            out[dev] = (dict(d.config.binder._bound),
+                        int(d.config.algorithm.last_node_index))
+        finally:
+            d.stop()
+    assert out["cuda"] == out["cpu"]
+    assert len(out["cuda"][0]) > 600
+
+
+@pytest.mark.cuda
+def test_cuda_out_of_memory_classifies_as_oom(cuda):
+    from kubernetes_tpu_torch.engine.guard import DeviceFault, DeviceGuard
+    free, _ = torch.cuda.mem_get_info()
+    g = DeviceGuard()
+    with pytest.raises(DeviceFault) as err:
+        with g.watch("oneshot", inject=False):
+            torch.empty(free + (1 << 30), dtype=torch.uint8, device=cuda)
+    assert err.value.kind == "oom"
+    assert isinstance(err.value.orig, torch.cuda.OutOfMemoryError)
+
+
+@pytest.mark.cuda
+def test_cuda_victim_solve_matches_cpu(cuda):
+    from kubernetes_tpu_torch.engine.workloads import preemption
+    rng = np.random.RandomState(3)
+    n, v = 5000, 16
+    t = dict(
+        alloc=np.tile(np.array([[4000, 8192, 1, 8]], np.int32), (n, 1)),
+        requested=rng.randint(2000, 4100, (n, 4)).astype(np.int32),
+        base_ok=rng.rand(n) < 0.9,
+        vic_req=rng.randint(0, 900, (n, v, 4)).astype(np.int32),
+        vic_prio=np.sort(rng.randint(0, 9, (n, v)), 1).astype(np.int32),
+        vic_valid=rng.rand(n, v) < 0.8,
+        pod_req=np.array([1500, 3000, 0, 1], np.int32))
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        args = [torch.from_numpy(t[k]).to(dev) for k in
+                ("alloc", "requested", "base_ok", "vic_req", "vic_prio",
+                 "vic_valid", "pod_req")]
+        got = preemption.victim_solve(
+            *args, torch.tensor(False, device=dev),
+            torch.tensor(8, dtype=torch.int32, device=dev))
+        out[dev.type] = [x.cpu() for x in got]
+    for a, b in zip(out["cuda"], out["cpu"]):
+        assert torch.equal(a, b)

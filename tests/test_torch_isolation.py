@@ -50,6 +50,18 @@ def test_port_sources_import_no_jax_and_no_reference_package():
     assert {"ops/combine.py", "server/extender.py", "utils/debugmux.py",
             "utils/metrics.py", "engine/extender_client.py",
             "api/validation.py"} <= names
+    # The daemon slice.
+    assert {"utils/featuregate.py", "utils/threadreg.py", "utils/events.py",
+            "chaos/device.py", "engine/devicestats.py", "engine/guard.py",
+            "engine/workloads/gang.py", "engine/workloads/preemption.py",
+            "apiserver/memstore.py", "api/fieldsel.py", "client/__init__.py",
+            "client/reflector.py", "scheduler/backoff.py",
+            "scheduler/queue.py", "scheduler/batchformer.py",
+            "scheduler/flightrecorder.py", "scheduler/binder.py",
+            "scheduler/pipeline.py", "scheduler/scheduler.py",
+            "scheduler/slo.py", "scheduler/recovery.py",
+            "scheduler/factory.py", "scheduler/__main__.py",
+            "api/componentconfig.py"} <= names
     bad = {str(f.relative_to(REPO)): [m for m in _imports(f)
                                       if _forbidden(m)]
            for f in files}
@@ -88,6 +100,89 @@ def test_a_port_drain_loads_no_jax_module():
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert out["placed"] > 0
     assert out["forbidden"] == []
+
+
+_DAEMON = r"""
+import json, sys, time
+import kubernetes_tpu_torch.scheduler.__main__ as entry
+from kubernetes_tpu_torch.apiserver.memstore import MemStore
+from kubernetes_tpu_torch.api.types import node_to_json, pod_to_json
+from kubernetes_tpu_torch.perf.synth import make_nodes, make_pods
+from kubernetes_tpu_torch.scheduler.factory import ConfigFactory
+store = MemStore()
+for nd in make_nodes(8):
+    store.create("nodes", node_to_json(nd))
+for pod in make_pods(12):
+    store.create("pods", pod_to_json(pod))
+factory = ConfigFactory(store, device="cpu").run()
+try:
+    deadline = time.monotonic() + 60
+    while time.monotonic() < deadline:
+        bound = sum(bool((o.get("spec") or {}).get("nodeName"))
+                    for o in store.list("pods")[0])
+        if bound == 12:
+            break
+        time.sleep(0.05)
+    from kubernetes_tpu_torch.chaos import device
+    from kubernetes_tpu_torch.engine import guard
+    from kubernetes_tpu_torch.engine.workloads import preemption
+finally:
+    factory.stop()
+mods = sorted(m for m in sys.modules
+              if m in ("jax", "jaxlib", "kubernetes_tpu")
+              or m.startswith(("jax.", "jaxlib.", "kubernetes_tpu.")))
+print(json.dumps({"bound": bound, "entry": entry.DEFAULT_PORT,
+                  "forbidden": mods}))
+"""
+
+
+def test_the_daemon_loads_no_jax_module():
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, "-c", _DAEMON], cwd=REPO,
+                          env=env, capture_output=True, text=True,
+                          timeout=240)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out["bound"] == 12
+    assert out["forbidden"] == []
+
+
+def test_the_daemon_binary_on_the_cpu_and_without_a_card():
+    """``--device cpu`` serves /healthz and exits 0 on SIGTERM; the
+    default ``--device cuda`` exits with an error where there is no
+    card; flags of later slices exit naming their slice."""
+    import signal
+    import urllib.request
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    cmd = [sys.executable, "-m", "kubernetes_tpu_torch.scheduler"]
+    proc = subprocess.Popen(cmd + ["--device", "cpu", "--port", "0"],
+                            cwd=REPO, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    try:
+        port = json.loads(proc.stdout.readline())["port"]
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz",
+                                    timeout=30) as resp:
+            assert resp.read() == b"ok"
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/configz",
+                                    timeout=30) as resp:
+            assert json.loads(resp.read())["device"] == "cpu"
+        proc.send_signal(signal.SIGTERM)
+        assert proc.wait(timeout=60) == 0
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    for flags, slice_name in ((["--api-server", "http://x"], "HTTP client"),
+                              (["--serve-apiserver", "8080"], "apiserver"),
+                              (["--leader-elect"], "leader election")):
+        bad = subprocess.run(cmd + ["--device", "cpu"] + flags, cwd=REPO,
+                             env=env, capture_output=True, text=True,
+                             timeout=120)
+        assert bad.returncode != 0 and slice_name in bad.stderr
+    if not torch.cuda.is_available():
+        bad = subprocess.run(cmd + ["--port", "0"], cwd=REPO, env=env,
+                             capture_output=True, text=True, timeout=120)
+        assert bad.returncode != 0 and "no CUDA device" in bad.stderr
 
 
 def test_entry_points_default_to_cuda_and_raise_without_it():

@@ -111,10 +111,11 @@ def test_paths_of_later_slices_raise_not_implemented():
     pod = t_pods[0]
     with pytest.raises(NotImplementedError, match="joint"):
         t_eng.schedule_batch([pod], joint=True)
-    with pytest.raises(NotImplementedError, match="preemption"):
-        t_eng.find_preemptions([pod])
-    with pytest.raises(NotImplementedError, match="preemption"):
-        t_eng.cache.victim_table(4)
+    # Preemption has landed (tests/test_torch_preemption.py): a pod
+    # without priority never preempts, and the victim table is built.
+    assert t_eng.find_preemptions([pod]) == []
+    vt = t_eng.cache.victim_table(4)
+    assert vt.req.shape == (len(t_eng.cache.nodes()), 4, 4)
     spread = tapi.Pod(name="s", namespace="default", annotations={
         tapi.TOPOLOGY_SPREAD_ANNOTATION_KEY: json.dumps([{
             "maxSkew": 1, "topologyKey": tapi.ZONE_LABEL,

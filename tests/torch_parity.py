@@ -128,3 +128,60 @@ def same(t: torch.Tensor, j) -> bool:
     b = np.asarray(j)
     return a.shape == b.shape and a.dtype == b.dtype and \
         np.array_equal(a, b)
+
+
+# -- daemon rigs (tests/test_torch_{daemon,guard,preemption}.py) ---------
+
+def to_port(obj):
+    """A reference Pod or Node as the port's object, through the JSON
+    codec both packages share, so both sides get identical inputs."""
+    from kubernetes_tpu.api import types as r_api
+    from kubernetes_tpu_torch.api import types as t_api
+    if isinstance(obj, r_api.Node):
+        return t_api.node_from_json(r_api.node_to_json(obj))
+    return t_api.pod_from_json(r_api.pod_to_json(obj))
+
+
+def daemon(side: str, n_nodes: int = 0, profile: str = "mixed",
+           floor: int = 8, flight: bool = False, eng=None, **attrs):
+    """A synchronous-bind ``Scheduler`` of ``side`` ("ref" or "port", the
+    port on the CPU) over a ``synth.make_rig(n_nodes)`` engine (or
+    ``eng``), with every PodScheduled condition write collected in
+    ``daemon.conditions`` and the small-drain floor at ``floor``.
+    ``attrs`` retune the daemon (STREAM_THRESHOLD, _PAD_LIMIT, ...)."""
+    if side == "ref":
+        from kubernetes_tpu.scheduler import binder, scheduler
+        synth_mod = ref_synth
+        kw = {}
+    else:
+        from kubernetes_tpu_torch.scheduler import binder, scheduler
+        synth_mod = t_synth
+        kw = {"device": "cpu"}
+    if eng is None:
+        eng, _ = synth_mod.make_rig(n_nodes, 0, profile=profile, **kw)
+    conditions: list = []
+    cfg = dict(algorithm=eng, binder=binder.InMemoryBinder(),
+               async_bind=False,
+               condition_updater=lambda pod, reason, msg:
+                   conditions.append((pod.key, reason, msg)))
+    if not flight:
+        cfg["flight_recorder"] = None
+    d = scheduler.Scheduler(scheduler.SchedulerConfig(**cfg))
+    d.conditions = conditions
+    d.stream_min_bucket = floor
+    for k, v in attrs.items():
+        setattr(d, k, v)
+    return d
+
+
+def outcome(d, keys) -> dict:
+    """What a daemon decided, comparable across packages: bindings, the
+    round-robin counter, each pod's events and the condition writes."""
+    return {
+        "bound": dict(d.config.binder._bound),
+        "counter": int(d.config.algorithm.last_node_index),
+        "events": {k: [(e.event_type, e.reason, e.message)
+                       for e in d.config.recorder.events(k)]
+                   for k in keys},
+        "conditions": list(d.conditions),
+    }
