@@ -74,9 +74,33 @@ fails the run with a non-zero exit:
    daemon drain of 4,096 pods: every pod binds as in the fault-free run,
    the fault counters match the injection, and no mode reads ``host``.
 
-It prints one ``{"kernels": [...]}`` line (with each kernel's launches
-on its phase's path and in the two daemon runs of phase 9), then the
-card line, and last ``{"ok": true, "device": {...}}``.
+13. topology spread: (a) a ``mixed`` drain of 5,000 nodes x 4,096 pods,
+   40% of them carrying a zone DoNotSchedule term (half of those also a
+   hostname ScheduleAnyway term), on cuda and cpu, identical; (b) the
+   north star with the same annotations: every choice inside its
+   batch-start hard mask, no node over capacity, the largest zone skew
+   after the drain, a split (planes, ``_compile``, scan, readback) and
+   one chunk's planes timed against their bound; (c) 65
+   ``schedule(pod)`` decisions with a hard term, one of them admitted by
+   no domain, cuda against cpu incl. the FitError map;
+14. the joint solve: (a) ``perf/workloads.joint_quality`` (500 nodes x
+   6,000 pods, seed 7) on cuda and cpu, records and placements
+   identical; (b) the north star through the daemon with the
+   ``JointSolver`` gate on, one one-shot joint solve: every pod's node
+   passes every predicate at batch start, no node over capacity, and a
+   split (evaluate, 24 price iterations, order and permutation, the
+   repair scan, readback, assume/bind);
+15. harnesses: ``perf/parity.run_parity`` (1,000 x 10,000 ``rich``, 200
+   sampled decisions) on the card with at least 99% agreement with the
+   oracle, then ``run_preemption_parity`` and ``gang_bench`` at their
+   defaults with no partial gang bound.
+
+Phase 2b includes the f32 route of the joint repair and topology spread:
+a non-integral score bias and an extra mask with all-false rows.  It
+prints one ``{"kernels": [...]}`` line (with each kernel's launches on
+its phase's path, in the two daemon runs of phase 9 and on the paths of
+phases 13-15), then the card line, and last ``{"ok": true, "device":
+{...}}``.
 """
 
 from __future__ import annotations
@@ -161,6 +185,21 @@ def device_time_per_call(fn, reps: int = 30, inner: int = 200) -> float:
         stop.synchronize()
         per.append(start.elapsed_time(stop) / inner)
     return statistics.median(per)
+
+
+def synced(acc: dict, key: str, fn):
+    """``fn`` wrapped so each call is synchronised before and after and
+    its seconds are added to ``acc[key]``."""
+    import torch
+
+    def call(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*a, **k)
+        torch.cuda.synchronize()
+        acc[key] = acc.get(key, 0.0) + time.perf_counter() - t0
+        return out
+    return call
 
 
 def select_cases(n: int, rng: np.random.RandomState) -> list[np.ndarray]:
@@ -416,27 +455,14 @@ def split_drain(nodes: int, pods: int, chunk: int) -> dict:
     plus the scan, synchronised so it is charged to the card's work), and
     the rest (the readback of each chunk's choices and the host code
     around it)."""
-    import torch
     from kubernetes_tpu_torch.perf import synth
 
     sched, plist = synth.make_rig(nodes, pods, profile="mixed",
                                   device="cuda")
     acc = {"compile": 0.0, "scan": 0.0}
-    compile_fn, solver = sched._compile, sched.solver
-    scan_fn = solver._solve_scan
-
-    def timed(key, fn):
-        def call(*a, **k):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = fn(*a, **k)
-            torch.cuda.synchronize()
-            acc[key] += time.perf_counter() - t0
-            return out
-        return call
-
-    sched._compile = timed("compile", compile_fn)
-    solver._solve_scan = timed("scan", scan_fn)
+    solver = sched.solver
+    sched._compile = synced(acc, "compile", sched._compile)
+    solver._solve_scan = synced(acc, "scan", solver._solve_scan)
     try:
         _, secs = drain(sched, plist, chunk)
     finally:
@@ -1333,6 +1359,381 @@ def phase_guard(nodes: int, pods: int, card: str) -> None:
           f"{sorted(set(ch['modes']))}, never host")
 
 
+# -- topology spread, the joint solve, the harnesses (phases 13-15) ---------
+
+def spread_rig(nodes: int, pods: int, device: str) -> tuple:
+    """``synth.make_rig(nodes, pods, "mixed")`` with a seeded 40% of the
+    pods carrying a zone DoNotSchedule term (half of them also a hostname
+    ScheduleAnyway term)."""
+    from kubernetes_tpu_torch.perf import synth
+    sched, plist = synth.make_rig(nodes, pods, profile="mixed",
+                                  device=device)
+    return sched, synth.add_spread_constraints(plist)
+
+
+def planes_bound(rows: int, n: int, t: int) -> tuple[float, str]:
+    """Least time of one chunk's planes: read src [rows, T] and the term
+    planes [T, N] (f32, two of them), write the mask [rows, N] (bool) and
+    the score [rows, N] (f32); 2 x rows x T x N multiply-adds."""
+    nbytes = rows * t + 2 * t * n * 4 + rows * n * 5
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = 4.0 * rows * t * n / F32_OPS_PER_S * 1e3
+    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms
+                                   else "operations")
+
+
+def phase_topology(nodes: int, parity_pods: int, pods: int,
+                   card: str) -> dict:
+    """13 (a) a spread-annotated ``mixed`` drain on cuda and cpu,
+    identical; (b) the north star with the same annotations, every
+    choice inside its batch-start hard mask, no node over capacity, the
+    largest skew after the drain and a split; (c) ``schedule(pod)`` with
+    a hard term, cuda against cpu, incl. a pod no domain admits."""
+    import torch
+    from kubernetes_tpu_torch.api import types as api
+    from kubernetes_tpu_torch.engine.generic_scheduler import FitError
+    from kubernetes_tpu_torch.engine.workloads import topology
+
+    # (a) cuda against cpu through the stream route.
+    placements = {}
+    for dev in ("cuda", "cpu"):
+        sched, plist = spread_rig(nodes, parity_pods, dev)
+        zero_counts()
+        out, secs = drain(sched, plist, CHUNK)
+        counts = kernel_counts()
+        placements[dev] = (out, int(sched.last_node_index))
+        print(f"phase 13a: {dev}: spread-annotated drain {nodes} x "
+              f"{parity_pods} (chunk {CHUNK}): {secs:.3f} s, placed "
+              f"{sum(x is not None for x in out)}, counter "
+              f"{int(sched.last_node_index)}")
+        if dev == "cuda":
+            launches_a = counts
+    if placements["cuda"] != placements["cpu"]:
+        a, b = placements["cuda"][0], placements["cpu"][0]
+        diff = [i for i in range(len(a)) if a[i] != b[i]][:5]
+        fail(f"topology drain: cuda and cpu differ at pods {diff} "
+             f"(counters {placements['cuda'][1]} vs "
+             f"{placements['cpu'][1]})")
+    want = {"scan_chunk": -(-parity_pods // CHUNK), "select_rows": 0,
+            "select_hosts": 0}
+    if launches_a != want:
+        fail(f"topology drain launched {launches_a}, expected {want}")
+    print(f"phase 13a: cuda placements and counter == cpu; launches "
+          f"{launches_a}")
+
+    # (b) the north star, annotated.
+    sched, plist = spread_rig(nodes, pods, "cuda")
+    _, _, dc, nt = sched._compile(plist)
+    hard, _ = sched._topo_planes(dc).rows()
+    zero_counts()
+    out, wall = drain(sched, plist, CHUNK)
+    launches_b = kernel_counts()
+    idx = torch.tensor([-1 if x is None else nt.name_to_idx[x]
+                        for x in out], device="cuda")
+    placed = idx >= 0
+    rows = torch.nonzero(placed)[:, 0]
+    inside = hard[rows, idx[rows]]
+    if not bool(inside.all()):
+        bad = rows[~inside][:5].tolist()
+        fail(f"topology: pods {bad} placed outside their batch-start hard "
+             f"mask")
+    bound = {p.key: x for p, x in zip(plist, out) if x is not None}
+    over = over_capacity(sched, bound, plist)
+    if over:
+        fail(f"topology north star: {over} nodes over capacity")
+    want = {"scan_chunk": -(-pods // CHUNK), "select_rows": 0,
+            "select_hosts": 0}
+    if launches_b != want:
+        fail(f"topology north star launched {launches_b}, expected {want}")
+    zcol = sched.cache.space.topo_keys.get(api.ZONE_LABEL)
+    zones = nt.topo_val[:, zcol]
+    live = sorted({int(z) for z, s in zip(zones, nt.schedulable)
+                   if s and z >= 0})
+    groups = {p.labels["app"] for p in plist
+              if api.TOPOLOGY_SPREAD_ANNOTATION_KEY in p.annotations}
+    skew = 0
+    for g in groups:
+        per = dict.fromkeys(live, 0)
+        for p, x in zip(plist, out):
+            if x is not None and p.labels.get("app") == g:
+                z = int(zones[nt.name_to_idx[x]])
+                if z in per:
+                    per[z] += 1
+        skew = max(skew, max(per.values()) - min(per.values()))
+    n_hard = sum(1 for p in plist
+                 if api.TOPOLOGY_SPREAD_ANNOTATION_KEY in p.annotations)
+    print(f"phase 13b: {card}: spread-annotated north star {nodes} x "
+          f"{pods} ({n_hard} pods with a zone DoNotSchedule term, "
+          f"{len(groups)} groups): {wall:.3f} s wall, "
+          f"{pods / wall:.1f} pods/s, placed {int(placed.sum())}; every "
+          f"choice inside its batch-start hard mask; 0 nodes over "
+          f"capacity; largest zone skew after the drain {skew} (the "
+          f"constraint holds against batch-start counts); launches "
+          f"{launches_b}")
+
+    # The split: planes (term planes + each chunk's rows), _compile, the
+    # hoist and scan, the readback and the rest.
+    sched, plist = spread_rig(nodes, pods, "cuda")
+    acc: dict = {}
+    solver = sched.solver
+    sched._compile = synced(acc, "compile", sched._compile)
+    sched._topo_planes = synced(acc, "planes", sched._topo_planes)
+    solver._solve_scan = synced(acc, "scan", solver._solve_scan)
+    real_rows = topology.TermPlanes.rows
+    topology.TermPlanes.rows = synced(acc, "planes", real_rows)
+    try:
+        _, secs = drain(sched, plist, CHUNK)
+    finally:
+        topology.TermPlanes.rows = real_rows
+        del solver._solve_scan
+    rest = secs - acc["compile"] - acc["planes"] - acc["scan"]
+    print(f"phase 13b: split {nodes} x {pods}: {secs:.3f} s wall = "
+          f"planes {acc['planes']:.3f} s + _compile {acc['compile']:.3f} s "
+          f"+ hoist and scan {acc['scan']:.3f} s + readback and the rest "
+          f"{rest:.3f} s")
+
+    # One chunk's planes on the card (CUDA events), against its bound.
+    terms = sched._topo_terms
+    tp = topology.TermPlanes(terms, dc.topo_dom)
+    t = terms.src.shape[1]
+
+    def one_chunk():
+        topology.TermPlanes(terms, dc.topo_dom).rows(0, CHUNK)
+
+    planes_ms = time_per_call(one_chunk, reps=10, inner=10, warmup=3)
+    rows_ms = time_per_call(lambda: tp.rows(0, CHUNK), reps=10, inner=10,
+                            warmup=3)
+    b_ms, b_by = planes_bound(CHUNK, nodes, t)
+    print(f"phase 13b: {card}: planes of one {CHUNK}-pod chunk at {nodes} "
+          f"nodes, T={t}: {planes_ms:.6f} ms with the term planes, "
+          f"{rows_ms:.6f} ms for the rows alone (CUDA events); bound "
+          f"{b_ms:.6f} ms ({b_by})")
+
+    # (c) schedule(pod) with a hard term, plus one no domain admits.
+    out = {}
+    for dev in ("cuda", "cpu"):
+        sched, plist = spread_rig(nodes, 64, dev)
+        for p in plist:
+            if api.TOPOLOGY_SPREAD_ANNOTATION_KEY not in p.annotations:
+                p.labels.setdefault("app", "grp-x")
+                p.annotations[api.TOPOLOGY_SPREAD_ANNOTATION_KEY] = \
+                    json.dumps([{"maxSkew": 1,
+                                 "topologyKey": api.ZONE_LABEL,
+                                 "whenUnsatisfiable": "DoNotSchedule",
+                                 "labelSelector": {"matchLabels": {
+                                     "app": p.labels["app"]}}}])
+        nowhere = api.Pod(
+            name="no-domain", namespace="default", labels={"app": "r"},
+            annotations={api.TOPOLOGY_SPREAD_ANNOTATION_KEY: json.dumps([{
+                "maxSkew": 1, "topologyKey": "kt/rack",
+                "whenUnsatisfiable": "DoNotSchedule",
+                "labelSelector": {"matchLabels": {"app": "r"}}}])})
+        zero_counts()
+        decisions = []
+        t0 = time.perf_counter()
+        for pod in plist[:32] + [nowhere] + plist[32:]:
+            try:
+                dest = sched.schedule(pod)
+            except FitError as err:
+                decisions.append(("FitError", err.failed_predicates))
+                continue
+            sched.cache.assume_pod(pod, dest)
+            decisions.append(dest)
+        secs = time.perf_counter() - t0
+        out[dev] = (decisions, int(sched.last_node_index), kernel_counts(),
+                    secs)
+    c, h = out["cuda"], out["cpu"]
+    if c[:2] != h[:2]:
+        fail("topology schedule(pod): cuda and cpu differ")
+    errs = [d for d in c[0] if isinstance(d, tuple)]
+    if len(errs) != 1 or len(errs[0][1]) != nodes or any(
+            preds[-1] != "TopologySpread" for preds in errs[0][1].values()):
+        fail("the pod no domain admits did not raise a FitError with "
+             "TopologySpread last on every node")
+    want = {"scan_chunk": 0, "select_rows": 0, "select_hosts": 65}
+    if c[2] != want:
+        fail(f"topology schedule(pod) launched {c[2]}, expected {want}")
+    print(f"phase 13c: {card}: 65 schedule(pod) decisions with a zone "
+          f"DoNotSchedule term at {nodes} nodes, cuda == cpu (decisions, "
+          f"counter {c[1]}, the FitError map of the pod no domain admits, "
+          f"TopologySpread last); cuda {c[3]:.3f} s, cpu {h[3]:.3f} s; "
+          f"launches {c[2]}")
+    return {"stream": launches_a["scan_chunk"] + launches_b["scan_chunk"],
+            "single": c[2]["select_hosts"], "planes_ms": planes_ms,
+            "rows_ms": rows_ms, "bound_ms": b_ms}
+
+
+def price_bound(p: int, n: int, iters: int) -> tuple[float, str]:
+    """Least time of ``_price_iterate`` after ``evaluate``: read the
+    feasible and score planes once (5 bytes per pod and node), write the
+    bias [P, N] f32 and the key [P]; per iteration and pod-node pair 3
+    divisions, 3 multiply-adds, a subtraction, a select and the argmax's
+    compare (about 12 f32 operations), once more for the final cost."""
+    nbytes = p * n * 5 + p * n * 4 + p * 4
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = 12.0 * (iters + 1) * p * n / F32_OPS_PER_S * 1e3
+    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms
+                                   else "operations")
+
+
+def phase_joint(nodes: int, pods: int, card: str) -> dict:
+    """14 (a) ``joint_quality`` at its own configuration on cuda and cpu,
+    identical placements; (b) the north star through the daemon with the
+    JointSolver gate on: one one-shot joint solve at full width."""
+    import torch
+    from kubernetes_tpu_torch.perf import synth
+    from kubernetes_tpu_torch.perf import workloads as wl
+    from kubernetes_tpu_torch.utils import featuregate
+
+    recs, placements = {}, {}
+    for dev in ("cuda", "cpu"):
+        recs[dev] = wl.joint_quality(500, 6000, seed=7, device=dev)
+        s, plist = wl.joint_rig(500, 6000, seed=7, device=dev)
+        zero_counts()
+        placements[dev] = (s.schedule_batch(plist, joint=True),
+                           int(s.last_node_index))
+        if dev == "cuda":
+            launches_a = kernel_counts()
+    strip = [{k: v for k, v in r.items() if not k.endswith("_s")}
+             for r in (recs["cuda"], recs["cpu"])]
+    if strip[0] != strip[1] or placements["cuda"] != placements["cpu"]:
+        fail(f"joint_quality: cuda {strip[0]} != cpu {strip[1]} or the "
+             f"placements differ")
+    want = {"scan_chunk": 1, "select_rows": 0, "select_hosts": 0}
+    if launches_a != want:
+        fail(f"joint_quality's joint solve launched {launches_a}, expected "
+             f"{want}")
+    r = recs["cuda"]
+    print(f"phase 14a: {card}: joint_quality 500 nodes x 6000 pods (seed "
+          f"7): greedy placed {r['greedy_placed']}, joint placed "
+          f"{r['joint_placed']} (x{r['joint_vs_greedy']}); cuda == cpu "
+          f"(records and placements); cuda greedy {r['greedy_s']} s, joint "
+          f"{r['joint_cold_s']} / {r['joint_warm_s']} s; cpu joint "
+          f"{recs['cpu']['joint_warm_s']} s; launches {launches_a}.  The "
+          f"JAX package's CPU record (WORKLOADS_r06.json, for information "
+          f"only): greedy 2726, joint 3087")
+
+    # (b) the north star through the daemon, JointSolver on.
+    old_gate = featuregate.DEFAULT_FEATURE_GATE
+    featuregate.set_default(featuregate.FeatureGate.parse(
+        "JointSolver=true"))
+    d = make_daemon(nodes, "cuda")
+    try:
+        alg = d.config.algorithm
+        solver = alg.solver
+        plist = synth.make_pods(pods, profile="mixed", n_services=4)
+        # Batch-start feasibility of every (pod, node): each placement
+        # must pass every predicate against the state it started from.
+        batch, db, dc, nt = alg._compile(plist)
+        feasible, _ = solver.evaluate(db, dc)
+        del db
+        acc: dict = {}
+        alg._compile = synced(acc, "compile", alg._compile)
+        real_eval = solver.evaluate
+        timed_price = synced(acc, "price", solver._price_iterate)
+
+        def price(*a, **k):
+            # evaluate timed only where the price iteration calls it.
+            solver.evaluate = synced(acc, "evaluate", real_eval)
+            try:
+                return timed_price(*a, **k)
+            finally:
+                del solver.evaluate
+        solver._price_iterate = price
+        solver._solve_scan = synced(acc, "scan", solver._solve_scan)
+        solver.solve_joint = synced(acc, "joint", solver.solve_joint)
+        commit = [0.0]
+        real = d._assume_and_bind_batch
+
+        def timed(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return real(*a, **k)
+            finally:
+                commit[0] += time.perf_counter() - t0
+        d._assume_and_bind_batch = timed
+        for p in plist:
+            d.enqueue(p)
+        zero_counts()
+        t0 = time.perf_counter()
+        while len(d.queue):
+            d.schedule_pending(wait_first=False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches_b = kernel_counts()
+        for name in ("_price_iterate", "_solve_scan", "solve_joint"):
+            delattr(solver, name)
+        bound = dict(d.config.binder._bound)
+        idx = torch.tensor([nt.name_to_idx[bound[p.key]] if p.key in bound
+                            else -1 for p in plist], device="cuda")
+        rows = torch.nonzero(idx >= 0)[:, 0]
+        ok = feasible[rows, idx[rows]]
+        if not bool(ok.all()):
+            fail(f"joint: pods {rows[~ok][:5].tolist()} placed on a node "
+                 f"that fails a predicate at batch start")
+        over = over_capacity(alg, bound, plist)
+        if over:
+            fail(f"joint north star: {over} nodes over capacity")
+        want = {"scan_chunk": 1, "select_rows": 0, "select_hosts": 0}
+        if launches_b != want:
+            fail(f"joint north star launched {launches_b}, expected {want}")
+    finally:
+        d.stop()
+        featuregate.set_default(old_gate)
+    price = acc["price"] - acc["evaluate"]
+    order = acc["joint"] - acc["price"] - acc["scan"]
+    rest = wall - acc["compile"] - acc["joint"] - commit[0]
+    b_ms, b_by = price_bound(pods, nodes, 24)
+    print(f"phase 14b: {card}: north star {nodes} x {pods} through the "
+          f"daemon, JointSolver on: one one-shot joint solve, {len(bound)} "
+          f"of {pods} placed (greedy, phase 9: {pods}), {wall:.3f} s wall "
+          f"= _compile {acc['compile']:.3f} s + evaluate "
+          f"{acc['evaluate']:.3f} s + 24 price iterations {price:.3f} s "
+          f"+ order and permutation {order:.3f} s + repair scan "
+          f"{acc['scan']:.3f} s + readback and the rest {rest:.3f} s + "
+          f"assume/bind {commit[0]:.3f} s; every pod's node passes every "
+          f"predicate at batch start, 0 nodes over capacity; launches "
+          f"{launches_b}; price iteration bound {b_ms:.6f} ms ({b_by})")
+    return {"quality": launches_a["scan_chunk"],
+            "north": launches_b["scan_chunk"], "price_s": price,
+            "evaluate_s": acc["evaluate"], "scan_s": acc["scan"],
+            "price_bound_ms": b_ms}
+
+
+def phase_harness(card: str) -> dict:
+    """15: the oracle replay at 1,000 x 10,000 ``rich`` on the card, then
+    the preemption parity and the gang bench at their defaults."""
+    from kubernetes_tpu_torch.perf import parity, workloads
+
+    zero_counts()
+    rec = parity.run_parity(1000, 10000, seed=0, n_samples=200,
+                            profile="rich", device="cuda")
+    launches = kernel_counts()
+    if rec["decision_agreement_pct"] < 99.0:
+        fail(f"oracle agreement {rec['decision_agreement_pct']}% < 99%: "
+             f"{rec['examples'][:3]}")
+    want = {"scan_chunk": 0, "select_rows": 10000, "select_hosts": 0}
+    if launches != want:
+        fail(f"the parity drain launched {launches}, expected {want}")
+    print(f"phase 15: {card}: oracle replay 1000 nodes x 10000 rich pods: "
+          f"{rec['decision_agreement_pct']}% of {rec['sampled_decisions']} "
+          f"sampled decisions agree (bar 99%; the JAX package's CPU record, "
+          f"PARITY.json: 100.0%), placed {rec['placed']}, infeasible "
+          f"choices {rec['infeasible_choices']}, drain {rec['drain_s']} s, "
+          f"replay {rec['replay_s']} s; launches {launches}")
+    pre = workloads.run_preemption_parity(device="cuda")
+    gang = workloads.gang_bench(device="cuda")
+    if pre["parity_pct"] < 99.0 or gang["partial_gangs_bound"] != 0:
+        fail(f"preemption parity {pre['parity_pct']}% or partial gangs "
+             f"{gang['partial_gangs_bound']}")
+    print(f"phase 15: {card}: preemption parity {pre['parity_pct']}% of "
+          f"{pre['judged']} (low pods bound {pre['low_pods_bound']}); gangs "
+          f"admitted {gang['gangs_admitted']} of {gang['gangs_total']}, "
+          f"partial gangs bound {gang['partial_gangs_bound']}, warm solve "
+          f"{gang['warm_solve_s']} s")
+    return {"parity": launches["select_rows"]}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--nodes", type=int, default=5000)
@@ -1347,6 +1748,7 @@ def main() -> int:
     ap.add_argument("--extender-probes", type=int, default=200)
     ap.add_argument("--factory-nodes", type=int, default=5000)
     ap.add_argument("--factory-pods", type=int, default=4096)
+    ap.add_argument("--topology-pods", type=int, default=4096)
     ap.add_argument("--kernels-only", action="store_true",
                     help="build and run phases 2, 2b and 6 only; prints "
                          "no result lines")
@@ -1386,6 +1788,9 @@ def main() -> int:
     phase_factory(args.factory_nodes, args.factory_pods, card)
     phase_preemption(args.nodes, card)
     phase_guard(args.nodes, args.factory_pods, card)
+    topo = phase_topology(args.nodes, args.topology_pods, args.pods, card)
+    joint = phase_joint(args.nodes, args.pods, card)
+    harness = phase_harness(card)
 
     kernels_line = [{
         "name": "select_rows",
@@ -1398,6 +1803,8 @@ def main() -> int:
         "launches": rich["select_rows"],
         "daemon_launches": {run: daemon[run]["counts"]["select_rows"]
                             for run in ("a", "b")},
+        "launches_by_path": {"topology": 0, "joint": 0,
+                            "parity_rich": harness["parity"]},
         "max_abs_err": kstats["max_abs_err"],
         "ms": kstats["ms"],
         "plain_ms": kstats["plain_ms"],
@@ -1413,6 +1820,9 @@ def main() -> int:
         "launches": full["launches"],
         "daemon_launches": {run: daemon[run]["counts"]["scan_chunk"]
                             for run in ("a", "b")},
+        "launches_by_path": {"topology": topo["stream"],
+                            "joint": joint["quality"] + joint["north"],
+                            "parity_rich": 0},
         "max_abs_err": sstats["max_abs_err"],
         "ms": sstats["ms"],
         "plain_ms": sstats["plain_ms"],
@@ -1429,6 +1839,8 @@ def main() -> int:
         "launches": single["launches"],
         "daemon_launches": {run: daemon[run]["counts"]["select_hosts"]
                             for run in ("a", "b")},
+        "launches_by_path": {"topology": topo["single"], "joint": 0,
+                            "parity_rich": 0},
         "max_abs_err": hstats["max_abs_err"],
         "ms": hstats["ms"],
         "kernel_ms": hstats["kernel_ms"],

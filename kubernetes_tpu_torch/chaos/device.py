@@ -18,7 +18,7 @@ cadence without touching CUDA:
   The post-solve sanity gate must catch it.
 
 Rules match on the solve ``path`` label (regex over
-stream/oneshot/single_pod/victim), fire deterministically on every
+stream/oneshot/joint/single_pod/victim), fire deterministically on every
 ``every_nth`` matching solve (or probabilistically), at most ``count``
 times.  The simulated errors carry the texts real CUDA faults carry, so
 the guard's classifier exercises the same string matching.

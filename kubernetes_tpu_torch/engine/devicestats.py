@@ -183,7 +183,7 @@ def post_prewarm_compiles() -> int:
 
 @contextlib.contextmanager
 def live_path(name: str) -> Iterator[None]:
-    """Declare the live path (stream/oneshot/single_pod/victim) for
+    """Declare the live path (stream/oneshot/joint/single_pod/victim) for
     builds fired from this thread — the watchdog's ``path`` label."""
     prev = getattr(_tls, "path", None)
     _tls.path = name

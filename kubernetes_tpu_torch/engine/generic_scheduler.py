@@ -10,6 +10,13 @@ Schedule, with policy extenders called over HTTP) and
 ``find_preemptions`` picks minimal-cost victim sets for unschedulable
 priority pods.  All are decision-identical to the JAX package.
 
+``schedule_batch(joint=True)`` runs the joint solve (price iteration,
+then the regret-ordered repair scan), and pods carrying
+topologySpreadConstraints get the spread planes
+(``engine/workloads/topology.py``) on every route: a hard mask and a
+soft score bias for the scan, ``"TopologySpread"`` in the FitError map,
+and the hard mask in the preemption base.
+
 Every device solve site runs inside the device guard
 (``engine/guard.py``: ``watch`` classifies CUDA faults, every assignment
 readback passes ``checked_readback``), under ``devicestats.live_path``
@@ -17,10 +24,6 @@ and a ``stage`` span.  There is no host engine to fall back to: a
 classified fault surfaces as ``DeviceFault`` (the daemon's pipeline
 retries, bisects or requeues), and a non-finite score plane on the
 single-pod path raises :class:`ScoreGateError`.
-
-Not in this package yet (each raises ``NotImplementedError``): pods with
-topologySpreadConstraints (the topology slice) and the joint solve
-(``joint=True``).
 """
 
 from __future__ import annotations
@@ -44,6 +47,7 @@ from kubernetes_tpu_torch.engine import guard as guard_mod
 from kubernetes_tpu_torch.engine import solver as sv
 from kubernetes_tpu_torch.engine.extender_client import (ExtenderUnavailable,
                                                          HTTPExtender)
+from kubernetes_tpu_torch.engine.workloads import topology
 from kubernetes_tpu_torch.features import batch as fb
 from kubernetes_tpu_torch.features import compiler as fc
 from kubernetes_tpu_torch.features import padcap
@@ -178,6 +182,9 @@ class GenericScheduler:
         self._axis_caps: dict[str, int] = {}
         self._flags_seen: sv.BatchFlags | None = None
         self._agg_handoff: Optional[tuple] = None
+        # Spread-constraint term tables of the batch ``_compile`` last saw
+        # (None = no pod carried topologySpreadConstraints).
+        self._topo_terms: Optional[topology.SpreadTerms] = None
 
     def _pinned_flags(self, batch) -> sv.BatchFlags:
         """Content flags OR-ed monotonically: once a family has appeared,
@@ -202,10 +209,15 @@ class GenericScheduler:
                             sv.DeviceCluster, object]:
         """Host snapshot + NumPy feature compile + the device transfer of
         the batch and the resident-cluster sync, all under the cache lock
-        so every read sees one generation."""
-        if any(api.TOPOLOGY_SPREAD_ANNOTATION_KEY in pod.annotations
-               for pod in pods):
-            raise not_ported("topologySpreadConstraints", "topology spread")
+        so every read sees one generation.  Sets ``_topo_terms`` to the
+        batch's spread-constraint tables (None without constraints)."""
+        # Topology keys named by spread constraints are interned BEFORE
+        # the snapshot, so topo_dom has their columns (a new key marks
+        # the node tensors dirty: once per workload type).
+        has_spread = topology.batch_has_spread(pods)
+        if has_spread:
+            for key in topology.spread_topology_keys(pods):
+                self.cache.ensure_topo_key(key)
         with self.cache.lock:
             with stage("snapshot", pods=len(pods)):
                 nt, agg, ep, nodes = self.cache.snapshot()
@@ -215,6 +227,12 @@ class GenericScheduler:
                 self._snapshot_generation = self.cache.generation
             with stage("compile", pods=len(pods)):
                 batch = self._compile_batch(pods, nt, ep, nodes)
+                # Term tables: counts snapshotted under the same lock as
+                # everything else this solve reads.
+                self._topo_terms = topology.compile_terms(
+                    pods, nt, self.cache.space,
+                    self.cache.topo_domain_counts_bulk) \
+                    if has_spread else None
             with stage("transfer"):
                 db = sv.device_batch(batch, self.device)
                 dc = self.resident.sync(nt, agg, self.cache.space,
@@ -247,6 +265,15 @@ class GenericScheduler:
             volsvc=volsvc)
         return padcap.apply_caps(batch, self._axis_caps)
 
+    def _topo_planes(self, dc: sv.DeviceCluster
+                     ) -> Optional[topology.TermPlanes]:
+        """The last compiled batch's spread term planes on the device
+        (None when no pod carries a constraint)."""
+        if self._topo_terms is None:
+            return None
+        with stage("topo_planes"):
+            return topology.TermPlanes(self._topo_terms, dc.topo_dom)
+
     # -- single-pod path (Schedule, generic_scheduler.go:78) -------------
 
     def schedule(self, pod: api.Pod) -> str:
@@ -273,6 +300,14 @@ class GenericScheduler:
         trace.step("Computing predicates & priorities")
         feasible, scores = self.solver.evaluate(
             db, dc, self._pinned_flags(batch))
+        topo = self._topo_planes(dc)
+        tmask = None
+        if topo is not None:
+            tmask, tscore = topo.rows()
+            if tmask is not None:
+                feasible = feasible & tmask
+            if tscore is not None:
+                scores = scores + tscore
         trace.step("Selecting host")
         if self.extenders:
             feasible_np = feasible[0].cpu().numpy()
@@ -280,7 +315,7 @@ class GenericScheduler:
             self.guard.checked_scores("single_pod",
                                       bool(np.isfinite(scores_np).all()))
             if not feasible_np.any():
-                raise self._fit_error(pod, db, dc, nt)
+                raise self._fit_error(pod, db, dc, nt, tmask)
             host = self._schedule_with_extenders(pod, nt, feasible_np,
                                                  scores_np)
             trace.log_if_long()
@@ -293,17 +328,21 @@ class GenericScheduler:
              torch.isfinite(scores).all().long()[None]]).cpu().tolist()
         self.guard.checked_scores("single_pod", bool(finite))
         if picked < 0:
-            raise self._fit_error(pod, db, dc, nt)
+            raise self._fit_error(pod, db, dc, nt, tmask)
         self.last_node_index = np.uint32(new_last & _MASK32)
         trace.log_if_long()
         return nt.names[picked]
 
     def _fit_error(self, pod: api.Pod, db: sv.DeviceBatch,
-                   dc: sv.DeviceCluster, nt) -> FitError:
+                   dc: sv.DeviceCluster, nt,
+                   tmask: Optional[torch.Tensor] = None) -> FitError:
         """FitError with, per schedulable node, the names of the
-        predicates that fail it (in ``Solver.masks`` order)."""
+        predicates that fail it (in ``Solver.masks`` order, then
+        ``"TopologySpread"`` when the pod carries a hard spread term)."""
         masks = {k: v[0].cpu().numpy()
                  for k, v in self.solver.masks(db, dc).items()}
+        if tmask is not None:
+            masks["TopologySpread"] = tmask[0].cpu().numpy()
         failed: dict[str, list[str]] = {}
         for i, name in enumerate(nt.names):
             if nt.schedulable[i]:
@@ -469,6 +508,11 @@ class GenericScheduler:
         for name, m in masks.items():
             if name not in ("PodFitsResources",):
                 base &= m
+        topo = self._topo_planes(dc)
+        if topo is not None:
+            tmask, _ = topo.rows()
+            if tmask is not None:
+                base &= tmask.cpu().numpy()
         with self.cache.lock:
             _, agg, _, _ = self.cache.snapshot()
             vt = self.cache.victim_table(pre.MAX_VICTIMS,
@@ -538,11 +582,14 @@ class GenericScheduler:
     def schedule_batch(self, pods: list[api.Pod],
                        joint: bool = False,
                        pad_to: int = 0) -> list[str | None]:
-        """Place a pending queue in one device solve, sequential-greedy in
-        queue order with full in-batch visibility.  Returns node names,
-        None where unschedulable.  ``pad_to`` pads the batch with
-        live-masked inert rows.  With policy extenders every pod goes
-        through the single-pod path (``schedule``)."""
+        """Place a pending queue in one device solve.  Returns node names,
+        None where unschedulable.  The default is sequential greedy in
+        queue order with full in-batch visibility; ``joint=True`` runs the
+        joint solve (price iteration, then the regret-ordered repair
+        scan): better aggregate placement, no per-pod order parity.
+        ``pad_to`` pads the batch with live-masked inert rows.  With
+        policy extenders every pod goes through the single-pod path
+        (``schedule``)."""
         if not pods:
             return []
         if not self.cache.nodes():
@@ -551,15 +598,14 @@ class GenericScheduler:
             return [None] * len(pods)
         if self.extenders:
             return self._schedule_batch_via_extenders(pods)
-        if joint:
-            raise not_ported("the joint solve (joint=True)", "joint")
         real_p = len(pods)
         live = None
         if pad_to > real_p:
             pods = list(pods) + [
                 api.Pod(name=f"__pad-{i}", namespace="__pad__")
                 for i in range(pad_to - real_p)]
-        with self.guard.watch("oneshot", inject=False):
+        with self.guard.watch("joint" if joint else "oneshot",
+                              inject=False):
             batch, db, dc, nt = self._compile(pods)
         flags = self._pinned_flags(batch)
         live_np = None
@@ -567,7 +613,15 @@ class GenericScheduler:
             live_np = np.zeros(len(pods), bool)
             live_np[:real_p] = True
             live = torch.from_numpy(live_np).to(self.device)
+        extra_mask = score_bias = None
+        topo = self._topo_planes(dc)
+        if topo is not None:
+            extra_mask, score_bias = topo.rows()
         self._agg_handoff = None
+        if joint:
+            return self._schedule_batch_joint(
+                pods, real_p, batch, db, dc, nt, flags, live, live_np,
+                extra_mask, score_bias)
         # One packed device->host copy for the whole drain: choices + tie
         # counter + final aggregates.
         p, n = len(pods), sv.cluster_nodes(dc)
@@ -575,7 +629,8 @@ class GenericScheduler:
                 self.guard.watch("oneshot"), \
                 stage("solve", pods=p, mode="sequential"):
             packed = self.solver.solve_sequential_packed(
-                db, dc, self._counter(), flags, live=live)
+                db, dc, self._counter(), flags, extra_mask=extra_mask,
+                score_bias=score_bias, live=live)
         with stage("readback", pods=p):
             with self.guard.watch("oneshot", inject=False):
                 host = packed.cpu().numpy()
@@ -604,6 +659,31 @@ class GenericScheduler:
                 host[p + 1 + 4 * n:].reshape(n, 2).astype(np.int32))
         names = nt.names
         return [names[c] if c >= 0 else None for c in rows]
+
+    def _schedule_batch_joint(self, pods, real_p, batch, db, dc, nt, flags,
+                              live, live_np, extra_mask, score_bias
+                              ) -> list[str | None]:
+        """The joint branch of ``schedule_batch``: one ``solve_joint``,
+        then one device->host copy of the choices and the counter."""
+        p, n = len(pods), sv.cluster_nodes(dc)
+        with devicestats.live_path("joint"), self.guard.watch("joint"), \
+                stage("solve", pods=p, mode="joint"):
+            choices, counter, _ = self.solver.solve_joint(
+                db, dc, self._counter(), flags=flags,
+                extra_mask=extra_mask, score_bias=score_bias, live=live)
+        with stage("readback", pods=p):
+            with self.guard.watch("joint", inject=False):
+                host = torch.cat([choices.long(), counter.long()]
+                                 ).cpu().numpy()
+            devicestats.record_transfer("readback", host.nbytes)
+        choices_np = self.guard.checked_readback(
+            "joint", host[:p], n, live=live_np, alloc=nt.alloc,
+            requests=np.asarray(batch.request),
+            keys_fn=lambda: [pd.key for pd in pods[:real_p]])
+        self.last_node_index = np.uint32(int(host[p]) & _MASK32)
+        names = nt.names
+        return [names[c] if c >= 0 else None
+                for c in choices_np[:real_p].tolist()]
 
     def take_agg_handoff(self) -> Optional[tuple]:
         """One-shot: the (generation, signature, node tensors, requested,
@@ -649,6 +729,10 @@ class GenericScheduler:
         with self.guard.watch("stream", inject=False):
             batch, db, dc, nt = self._compile(all_pods)
         flags = self._pinned_flags(batch)
+        # Spread-constraint planes: the [T, N] term planes once, then each
+        # chunk's rows on the device (row-separable; pad rows carry no
+        # constraint), so the whole [P, N] planes never exist.
+        topo = self._topo_planes(dc)
         counter = self._counter()
         carry = None
         n = sv.cluster_nodes(dc)
@@ -695,8 +779,11 @@ class GenericScheduler:
             with devicestats.live_path("stream"), \
                     self.guard.watch("stream"), \
                     stage("solve", chunk_at=start, mode="stream"):
+                em_k = sb_k = None
+                if topo is not None:
+                    em_k, sb_k = topo.rows(start, start + chunk_size)
                 choices_k, counter, carry = self.solver._solve_scan(
-                    db_k, dc, counter, None, flags, carry, live, None)
+                    db_k, dc, counter, sb_k, flags, carry, live, em_k)
             pending.append((start, choices_k))
             if len(pending) > 1:
                 s_k, c_k = pending.pop(0)

@@ -2,8 +2,8 @@
 post-solve sanity gate.
 
 Counterpart of ``kubernetes_tpu/engine/guard.py`` with a CUDA taxonomy.
-Every solve site (one-shot, stream chunk, single-pod, preemption victim
-solve) runs inside this layer so a device fault is a policy decision
+Every solve site (one-shot, stream chunk, joint, single-pod, preemption
+victim solve) runs inside this layer so a device fault is a policy decision
 instead of a stalled drain loop:
 
 * **Classification.**  ``classify()`` buckets an exception into

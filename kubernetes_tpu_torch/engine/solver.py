@@ -27,8 +27,14 @@ of every step is the CUDA kernel of ``engine/fused.py``.
     per-predicate masks behind them) of the single-pod path, the
     extender verbs and ``explain_failures``.
 
-Not in this package yet: the legacy full-plane scan body, the joint
-solver and the narrow int16 wire planes.
+``solve_joint``
+    The joint batched assignment: ``_price_iterate`` (24 dual-price
+    steps and the regret-ordered repair key, torch ops), then the
+    repair scan, which is ``_solve_scan`` over the permuted batch with
+    the price cost as its f32 score bias.
+
+Not in this package yet: the legacy full-plane scan body and the narrow
+int16 wire planes.
 """
 
 from __future__ import annotations
@@ -619,15 +625,19 @@ class Solver:
     def solve_sequential_packed(self, b: DeviceBatch, c: DeviceCluster,
                                 last_node_index: torch.Tensor,
                                 flags: BatchFlags,
+                                extra_mask: torch.Tensor | None = None,
+                                score_bias: torch.Tensor | None = None,
                                 live: torch.Tensor | None = None
                                 ) -> torch.Tensor:
         """Greedy in-order placement of the whole batch, with every
         host-bound result packed into ONE int64 vector: [choices (P),
         counter (1), requested (4N), nonzero (2N)], so the host reads the
         drain back in one copy.  ``last_node_index`` is a [1] int64
-        tensor (low 32 bits used)."""
+        tensor (low 32 bits used); ``extra_mask``/``score_bias`` are the
+        workload-constraint planes (topology spread)."""
         choices, counter, final = self._solve_scan(
-            b, c, last_node_index, None, flags, None, live, None)
+            b, c, last_node_index, score_bias, flags, None, live,
+            extra_mask)
         requested, nonzero = self._final_aggregates(final)
         return torch.cat([choices.long(), counter.long(),
                           requested.reshape(-1).long(),
@@ -637,6 +647,127 @@ class Solver:
     def _final_aggregates(final: dict) -> tuple[torch.Tensor, torch.Tensor]:
         """(requested [N,4], nonzero [N,2]) from the scan's packed [N,6]."""
         return final["packed"][:, :4], final["packed"][:, 4:6]
+
+    @staticmethod
+    def _carry_cluster(c: DeviceCluster, final: dict) -> DeviceCluster:
+        """Fold a scan's final dynamic state back into a DeviceCluster."""
+        requested, nonzero = Solver._final_aggregates(final)
+        return c._replace(
+            requested=requested, nonzero=nonzero,
+            ports_used=final.get("ports_used", c.ports_used),
+            vol_any=final.get("vol_any", c.vol_any),
+            vol_rw=final.get("vol_rw", c.vol_rw))
+
+    # -- joint batched assignment (the LP-relaxed global solve) ----------
+
+    def _price_iterate(self, b: DeviceBatch, c: DeviceCluster,
+                       n_iters: int,
+                       extra_mask: torch.Tensor | None = None
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+        """Dual-price iteration for the joint assignment objective.
+
+        The batched placement is a generalized assignment problem:
+        maximize the summed combined score subject to per-node
+        multi-resource capacity.  Its LP relaxation decomposes by pricing
+        each node resource (dual variables lam [N, 3]): pods bid for
+        their utility-argmax node, prices rise on oversubscribed
+        resources (projected subgradient on the dual), and the final
+        prices shape a regret-ordered greedy repair pass
+        (``solve_joint``).  Returns (score_bias [P, N] = -price cost,
+        repair-order key [P]).
+
+        Torch ops throughout, decision-identical to the JAX package's
+        jitted ``_price_iterate``:
+
+        * the cost ``einsum("pnr,nr->pn", dnorm, lam)`` and the price
+          step ``lam + lr * over`` round as XLA's CPU backend rounds
+          them, with fused multiply-adds (``_price_cost``,
+          ``fma_f32``), and the [P, N, 3] ``dnorm`` never exists;
+        * the bid load ``einsum("pn,pr->nr", one_hot(choice) * placed,
+          demand)`` is an int64 ``index_add_`` of the placed pods'
+          integer requests at their choices, cast to f32 once: exact and
+          order-free (the JAX sum is exact too while a node's bid total
+          stays below 2^24);
+        * the size bucket's ``max(demand / free)`` over all nodes is
+          ``demand / min(free)`` (division is monotonic in the divisor,
+          so the quotient of the least divisor is the maximum)."""
+        f32 = torch.float32
+        feasible, scores = self.evaluate(b, c)
+        if extra_mask is not None:
+            feasible = feasible & extra_mask
+        neg = float("-inf")
+        free = torch.clamp((c.alloc[:, :3] - c.requested[:, :3]).to(f32),
+                           min=1.0)                                # [N, 3]
+        demand = b.request[:, :3].to(f32)                          # [P, 3]
+        span = torch.clamp(torch.where(feasible, scores, 0.0).amax(),
+                           min=1.0)
+        lr = span  # one full-node oversubscription ~ top score
+        placed = feasible.any(dim=1)
+        bids = b.request[:, :3].to(torch.int64) * placed[:, None]
+        lam = torch.zeros((c.alloc.shape[0], 3), dtype=f32,
+                          device=c.alloc.device)
+        for _ in range(n_iters):
+            util = torch.where(feasible,
+                               scores - _price_cost(demand, free, lam), neg)
+            choice = util.argmax(dim=1)
+            load = torch.zeros_like(lam, dtype=torch.int64).index_add_(
+                0, choice, bids).to(f32)
+            over = torch.clamp(load - free, min=0.0) / free
+            lam = torch.clamp(fma_f32(lr, over, lam)
+                              - 0.02 * lr * (over == 0).to(f32), min=0.0)
+        cost = _price_cost(demand, free, lam)
+        util = torch.where(feasible, scores - cost, neg)
+        if util.shape[1] > 1:
+            top2 = torch.topk(util, 2, dim=1).values
+        else:
+            top2 = torch.cat([util, torch.full_like(util, neg)], dim=1)
+        t0, t1 = top2[:, 0], top2[:, 1]
+        regret = torch.where(
+            torch.isfinite(t0),
+            t0 - torch.where(torch.isfinite(t1), t1, t0 - 1e3), neg)
+        # Repair-order key: smallest dominant-resource fraction first
+        # (for a sum-of-scores objective with commensurate per-pod scores
+        # this maximizes admitted count), regret-tiebroken within a size
+        # bucket.
+        dfrac = (demand / free.amin(dim=0)[None, :]).amax(dim=1)
+        key = -torch.floor(torch.clamp(dfrac, max=1.0) * 16.0) \
+            * (20.0 * span) \
+            + torch.where(torch.isfinite(regret), regret, 0.0)
+        return -cost, key
+
+    def solve_joint(self, b: DeviceBatch, c: DeviceCluster,
+                    last_node_index: torch.Tensor, n_iters: int = 24, *,
+                    flags: BatchFlags,
+                    extra_mask: torch.Tensor | None = None,
+                    score_bias: torch.Tensor | None = None,
+                    live: torch.Tensor | None = None
+                    ) -> tuple[torch.Tensor, torch.Tensor, DeviceCluster]:
+        """Joint batched assignment: price iteration, then the greedy
+        repair in regret order.  Returns (choices [P] int32 in the
+        batch's own order, counter [1] int64, the cluster after the
+        placements).  Placements honor EVERY predicate: the repair pass
+        is the exact sequential scan (``_solve_scan``, on the card one
+        scan-kernel launch for a ``mixed`` batch), price-shaped through
+        its f32 score bias and reordered, plus the workload-constraint
+        ``extra_mask``/``score_bias`` planes.  ``live`` marks real rows
+        when the caller padded the batch.  ``flags`` come from the host
+        batch (``batch_flags``)."""
+        bias, key = self._price_iterate(b, c, n_iters, extra_mask)
+        if score_bias is not None:
+            bias = bias + score_bias
+        # Biggest, then highest-regret, first: a stable sort of -key in
+        # the float order of the JAX package's jnp.argsort.
+        order = torch.argsort(_sort_key(-key), stable=True)
+        pb = permute_pod_axis(b, order)
+        pbias = bias.index_select(0, order)
+        pmask = None if extra_mask is None else \
+            extra_mask.index_select(0, order)
+        plive = None if live is None else live.index_select(0, order)
+        choices_p, counter, final = self._solve_scan(
+            pb, c, last_node_index, pbias, flags, None, plive, pmask)
+        choices = torch.empty_like(choices_p)
+        choices[order] = choices_p
+        return choices, counter, self._carry_cluster(c, final)
 
     def _solve_scan(self, b: DeviceBatch, c: DeviceCluster,
                     last_node_index: torch.Tensor,
@@ -1131,3 +1262,75 @@ def slice_pod_axis(b: DeviceBatch, start: int, stop: int) -> DeviceBatch:
     volsvc = b.volsvc._replace(**{f: getattr(b.volsvc, f)[start:stop]
                                   for f in _VS_POD_AXIS_FIELDS})
     return b._replace(aff=aff, volsvc=volsvc, **updates)
+
+
+def permute_pod_axis(b: DeviceBatch, order: torch.Tensor) -> DeviceBatch:
+    """Reorder every pod-axis tensor of a DeviceBatch by ``order``."""
+    updates = {f: getattr(b, f).index_select(0, order)
+               for f in _POD_AXIS_FIELDS}
+    aff = b.aff._replace(**{f: getattr(b.aff, f).index_select(0, order)
+                            for f in _AFF_POD_AXIS_FIELDS})
+    volsvc = b.volsvc._replace(
+        **{f: getattr(b.volsvc, f).index_select(0, order)
+           for f in _VS_POD_AXIS_FIELDS})
+    return b._replace(aff=aff, volsvc=volsvc, **updates)
+
+
+def fma_f32(a: torch.Tensor, b: torch.Tensor,
+            c: torch.Tensor) -> torch.Tensor:
+    """``a * b + c`` of f32 tensors (broadcast to ``c``'s shape) with ONE
+    rounding (a fused multiply-add), from elementwise float64 ops, so the card and the CPU
+    give the same bits whatever their own contraction rules.
+
+    XLA's CPU backend contracts a multiply feeding an add into an FMA, so
+    the JAX package's f32 ``lam + lr * over`` and its three-term price
+    dot round once per multiply-add; this reproduces those bits.  The
+    product is exact in float64 (24 + 24 bits); Knuth's TwoSum gives the
+    sum's rounding error exactly; rounding the float64 sum to f32 is
+    correct except when it lands exactly on an f32 midpoint (the low 29
+    of its 52 mantissa bits are 1 followed by zeros) while the error is
+    not zero, where the result moves one f32 step toward the error.  The
+    midpoint test holds for results in the f32 normal range, which the
+    price iteration's values are (integer requests, prices of at least
+    the 1/node-capacity order)."""
+    f64 = torch.float64
+    p = a.to(f64) * b.to(f64)
+    cd = c.to(f64)
+    s = p + cd
+    bb = s - p
+    err = (p - (s - bb)) + (cd - bb)
+    r = s.to(torch.float32)
+    low = s.view(torch.int64) & ((1 << 29) - 1)
+    tie = low == (1 << 28)
+    inf = torch.full_like(r, float("inf"))
+    return torch.where(tie & (err > 0), torch.nextafter(r, inf),
+                       torch.where(tie & (err < 0),
+                                   torch.nextafter(r, -inf), r))
+
+
+def _price_cost(demand: torch.Tensor, free: torch.Tensor,
+                lam: torch.Tensor) -> torch.Tensor:
+    """[P, N] ``sum_r (demand[p, r] / free[n, r]) * lam[n, r]``: the JAX
+    package's ``einsum("pnr,nr->pn", dnorm, lam)`` as XLA's CPU backend
+    computes it, a multiply-add chain in r order
+    (``fma(d2, l2, fma(d1, l1, d0 * l0))``), each ``demand[:, r] /
+    free[:, r]`` formed per use (the [P, N, 3] ``dnorm`` never exists),
+    with no BLAS call to reorder the sum."""
+    cost = None
+    for r in range(demand.shape[1]):
+        d = demand[:, r, None] / free[None, :, r]
+        cost = d * lam[None, :, r] if cost is None else \
+            fma_f32(d, lam[None, :, r], cost)
+    return cost
+
+
+def _sort_key(x: torch.Tensor) -> torch.Tensor:
+    """int32 keys that order f32 ``x`` as ``jnp.argsort`` orders it on
+    the CPU: -0.0 and subnormals equal to 0.0 (XLA flushes subnormals),
+    every NaN after +inf.  A float's bits as int32 with the magnitude
+    bits of negative values flipped, after those become 0.0; NaN maps to
+    the largest int32.  Integer keys sort alike on every device."""
+    x = torch.where(x.abs() < 2.0 ** -126, 0.0, x)
+    bits = x.contiguous().view(torch.int32)
+    key = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits)
+    return torch.where(torch.isnan(x), 0x7FFFFFFF, key)

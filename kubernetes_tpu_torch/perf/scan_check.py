@@ -14,8 +14,11 @@ all-infeasible chunk, round-robin counters at 0, 2^31, 2^32 - 1 (wraps on
 the first placement) and 2^32, an f16 encoded plane, MostRequested and
 non-unit weights, templates over their cap (in-step resource scores),
 a policy with neither spread nor PodFitsResources, node 0 unschedulable
-under unplaceable pods (the spread maxima must not fold column 0), and
-identical nodes whose ties straddle lanes, rounds and warps.
+under unplaceable pods (the spread maxima must not fold column 0),
+identical nodes whose ties straddle lanes, rounds and warps, and the
+f32 route the joint repair and topology spread take: a non-integral
+score bias (which keeps even the f16 policy's plane at f32), and an
+extra mask that leaves whole rows infeasible.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ from __future__ import annotations
 import functools
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 from kubernetes_tpu_torch.api import policy as pol
@@ -74,6 +78,8 @@ class Case:
     counter: int = 0
     infeasible: bool = False
     template_cap: int | None = None
+    bias: bool = False
+    masked_rows: bool = False
 
 
 def _rig(device, n_nodes: int, n_pods: int, profile: str = "mixed",
@@ -131,6 +137,11 @@ def _cases() -> dict:
     out["node 0 unschedulable, unplaced steps"] = _node0_unschedulable
     out["ties across threads"] = \
         lambda d: _rig(d, 5000, 512, profile="uniform")
+    out["non-integral bias, f16 policy"] = \
+        lambda d: _rig(d, 1025, 256, policy_name="f16")
+    out["non-integral bias, N=5000"] = lambda d: _rig(d, 5000, 512)
+    out["extra mask with all-false rows, bias"] = \
+        lambda d: _rig(d, 1025, 256)
     return out
 
 
@@ -147,6 +158,10 @@ def case(name: str, device) -> Case:
         extra["counter"] = int(name.split()[1])
     elif name.startswith("templates over the cap"):
         extra["template_cap"] = 2
+    if "bias" in name:
+        extra["bias"] = True
+    if "all-false rows" in name:
+        extra["masked_rows"] = True
     return Case(name, *_FACTORIES[name](device), **extra)
 
 
@@ -164,6 +179,27 @@ def _compile(case: Case):
     finally:
         sv.DYN_TEMPLATE_CAP = cap
     return db, dc, sv.batch_flags(batch)
+
+
+def constraint_planes(case: Case, n_nodes: int, device
+                      ) -> tuple[torch.Tensor | None, torch.Tensor | None]:
+    """(extra_mask, score_bias) [P, N] for the case, seeded by its size:
+    the bias in steps of 1/64 plus a third (non-integral, as a joint
+    price cost is), the mask about 1 in 8 entries false and every fifth
+    row all false."""
+    p = len(case.pods)
+    rng = np.random.RandomState(p * 131 + n_nodes)
+    bias = mask = None
+    if case.bias:
+        b = rng.randint(-640, 640, (p, n_nodes)) / 64.0 + 1.0 / 3.0
+        bias = torch.from_numpy(b.astype(np.float32)).to(device)
+    if case.masked_rows:
+        m = rng.rand(p, n_nodes) >= 0.125
+        m[::5] = False
+        mask = torch.from_numpy(m).to(device)
+    if case.infeasible:
+        mask = torch.zeros((p, n_nodes), dtype=torch.bool, device=device)
+    return mask, bias
 
 
 def _bits(t: torch.Tensor) -> torch.Tensor:
@@ -193,18 +229,18 @@ def run_routes(case: Case, routes: tuple = ("steps", "kernel"),
     dev = dc.alloc.device
     state = {r: (torch.tensor([case.counter], dtype=torch.int64,
                               device=dev), None) for r in routes}
+    mask, bias = constraint_planes(case, dc.alloc.shape[0], dev)
     placed = 0
     worst = 0.0
     for start in range(0, p, size):
         bk = sv.slice_pod_axis(db, start, start + size)
-        rows = bk.request.shape[0]
-        extra = torch.zeros((rows, dc.alloc.shape[0]), dtype=torch.bool,
-                            device=dev) if case.infeasible else None
+        extra = None if mask is None else mask[start:start + size]
+        sb = None if bias is None else bias[start:start + size]
         got = {}
         for r in routes:
             counter, carry = state[r]
             ch, counter, carry = case.sched.solver._solve_scan(
-                bk, dc, counter, None, flags, carry, None, extra, route=r)
+                bk, dc, counter, sb, flags, carry, None, extra, route=r)
             state[r] = (counter, carry)
             got[r] = (ch, counter, carry)
         ref_ch, ref_cnt, ref_carry = got[routes[0]]

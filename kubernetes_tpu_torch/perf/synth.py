@@ -167,6 +167,32 @@ def make_pods(n: int, seed: int = 1, profile: str = "uniform",
     return out
 
 
+def add_spread_constraints(pods: list, seed: int = 5,
+                           share: float = 0.4) -> list:
+    """Give about ``share`` of ``pods`` (drawn from ``seed``) a zone
+    DoNotSchedule topologySpreadConstraint (maxSkew 1) over their
+    ``app`` label (``grp-<i mod 3>`` where they have none), and half of
+    those also a hostname ScheduleAnyway term (maxSkew 2).  Returns
+    ``pods``, annotated in place."""
+    rng = np.random.RandomState(seed)
+    for i, p in enumerate(pods):
+        r = rng.rand()
+        if r >= share:
+            continue
+        app = p.labels.get("app", f"grp-{i % 3}")
+        p.labels["app"] = app
+        sel = {"matchLabels": {"app": app}}
+        terms = [{"maxSkew": 1, "topologyKey": api.ZONE_LABEL,
+                  "whenUnsatisfiable": "DoNotSchedule",
+                  "labelSelector": sel}]
+        if r < share / 2:
+            terms.append({"maxSkew": 2, "topologyKey": api.HOSTNAME_LABEL,
+                          "whenUnsatisfiable": "ScheduleAnyway",
+                          "labelSelector": sel})
+        p.annotations[api.TOPOLOGY_SPREAD_ANNOTATION_KEY] = json.dumps(terms)
+    return pods
+
+
 def make_services(n: int, namespace: str = "default") -> list[api.Service]:
     return [api.Service(name=f"svc-{i}", namespace=namespace,
                         selector={"app": f"svc-{i}"}) for i in range(n)]

@@ -12,14 +12,15 @@ modes:
   chunk N-1's readback/assume/bind (``pipeline_window`` in flight);
 * ``oneshot`` — one ``schedule_batch`` solve; gang batches take this
   path padded to a warm bucket (all-or-nothing needs one assignment
-  vector), as do extender-constrained and above-pad-limit drains.
+  vector), as do extender-constrained and above-pad-limit drains;
+* ``joint``   — ``schedule_batch(joint=True)`` (the ``JointSolver``
+  gate): prices couple every pod, so the whole queue is one solve,
+  padded to a warm bucket like a gang batch.
 
 Every dispatch runs under the device guard's recovery ladder
 (``_solve``).  This package has no host engine, so an open breaker
 surfaces the fault to ``drain()``'s crash handler, which requeues the
-batch.  Not here yet: the joint solve (the ``JointSolver`` gate; the
-engine raises ``NotImplementedError``) and the multi-tenant packing
-(the tenancy slice).
+batch.  Not here yet: the multi-tenant packing (the tenancy slice).
 
 Commit-side semantics (assume-before-bind per pod, flight-recorder
 feeds, preemption, failure requeue) stay on the daemon, which the

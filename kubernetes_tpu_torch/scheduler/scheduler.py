@@ -21,6 +21,7 @@ requeues the pod through backoff (there is no host engine to decide it).
 from __future__ import annotations
 
 import heapq
+import json
 import threading
 import time
 from dataclasses import dataclass, field
@@ -90,20 +91,28 @@ def bucket_ladder(floor: int, stream_threshold: int, pad_limit: int,
 
 
 def prewarm_plan(ladder: list[int], cuda: bool = True,
-                 preempt: bool = True) -> list[str]:
+                 preempt: bool = True, joint: bool = True) -> list[str]:
     """The warm-up plan: every key ``prewarm()`` runs for a given ladder,
     without touching a device.  Torch compiles nothing per shape, so the
     plan names what a live drain would otherwise pay on the clock: the
     ``nvcc`` build of the kernel library (on a card), one scan-kernel
     launch per ladder bucket (``scan_chunk@<bucket>``: a stream chunk of
     that many pods), one launch of the step loop's select kernel and of
-    the single-pod select kernel (both always one row wide), and the
-    victim solve at the cluster's (N, V) shape."""
+    the single-pod select kernel (both always one row wide), the victim
+    solve at the cluster's (N, V) shape, the topology spread planes
+    (``topo_planes``: their gather and float64 contraction) and a
+    spread-constrained one-shot drain at the floor bucket, and, with the
+    joint solve on, a joint drain at the floor bucket.  The topology and
+    joint keys are the JAX package's program keys."""
     progs = ["build"] if cuda else []
     progs += [f"scan_chunk@{b}" for b in ladder]
     progs += ["select_rows@1", "select_hosts@1"]
     if preempt:
         progs.append("victim_solve")
+    if ladder:
+        progs += ["topo_planes", f"oneshot_topo@{min(ladder)}"]
+    if joint and ladder:
+        progs.append(f"joint@{min(ladder)}")
     return sorted(progs)
 
 
@@ -556,7 +565,8 @@ class Scheduler:
             return []
         return prewarm_plan(
             self.effective_ladder(), cuda=alg.device.type == "cuda",
-            preempt=DEFAULT_FEATURE_GATE.enabled("Preemption"))
+            preempt=DEFAULT_FEATURE_GATE.enabled("Preemption"),
+            joint=DEFAULT_FEATURE_GATE.enabled("JointSolver"))
 
     def prewarm(self, sample_pods: Optional[list] = None) -> dict:
         """Pay, before the queue opens, what a live drain would otherwise
@@ -564,7 +574,9 @@ class Scheduler:
         of the kernel library, one stream chunk at every ladder bucket
         (the scan kernel's launch at that size), one launch of the step
         loop's select kernel, one single-pod decision (the single-pod
-        select kernel) and the victim solve at the cluster's (N, V).
+        select kernel), the victim solve at the cluster's (N, V), the
+        topology planes with a spread-constrained drain and, with the
+        joint solve on, a joint drain (``_prewarm_workloads``).
 
         ``sample_pods`` shapes the warm batches (vocab capacities +
         content flags) like the expected workload; without it minimal
@@ -657,23 +669,60 @@ class Scheduler:
         return timings
 
     def _prewarm_workloads(self, audited) -> dict:
-        """The workloads subsystem's warm-up: the preemption victim solve
-        at the cluster's (N, V) shape.  Gang one-shot solves reuse the
-        ladder's scan launches; topology spread is a later slice."""
+        """The workloads subsystem's warm-up, as the JAX package runs it:
+        the preemption victim solve at the cluster's (N, V) shape, the
+        topology spread planes and a drain of 4 pods carrying a zone
+        DoNotSchedule term padded to the floor bucket, and, with the
+        ``JointSolver`` gate on, 4 pods through ``schedule_batch(joint=
+        True)`` at the floor bucket.  Gang one-shot solves reuse the
+        ladder's scan launches.  The warm pods are never assumed."""
         from kubernetes_tpu_torch.utils.featuregate import \
             DEFAULT_FEATURE_GATE
         alg = self.config.algorithm
         timings: dict = {}
+        ladder = self.effective_ladder()
+        floor = min(ladder) if ladder else 0
         try:
             if DEFAULT_FEATURE_GATE.enabled("Preemption"):
                 from kubernetes_tpu_torch.engine.workloads import preemption
                 timings["preempt"] = audited(
                     "victim_solve", lambda: preemption.prewarm_shapes(
                         len(alg.cache.nodes()), alg.device))
+            if floor:
+                tsc = json.dumps([{
+                    "maxSkew": 1, "topologyKey": api.ZONE_LABEL,
+                    "whenUnsatisfiable": "DoNotSchedule",
+                    "labelSelector": {"matchLabels": {"kt/warm": "1"}}}])
+                spods = [api.Pod(
+                    name=f"__warm-topo-{i}", namespace="__warm__",
+                    labels={"kt/warm": "1"},
+                    annotations={api.TOPOLOGY_SPREAD_ANNOTATION_KEY: tsc})
+                    for i in range(min(floor, 4))]
+                timings["topology"] = audited(
+                    "topo_planes", lambda: self._warm_topo_planes(spods))
+                timings["topology"] += audited(
+                    f"oneshot_topo@{floor}",
+                    lambda: alg.schedule_batch(spods, pad_to=floor))
+                if DEFAULT_FEATURE_GATE.enabled("JointSolver"):
+                    jpods = [api.Pod(name=f"__warm-joint-{i}",
+                                     namespace="__warm__")
+                             for i in range(min(floor, 4))]
+                    timings["joint"] = audited(
+                        f"joint@{floor}", lambda: alg.schedule_batch(
+                            jpods, joint=True, pad_to=floor))
         except Exception:  # noqa: BLE001 — warmup must never kill startup
-            log.exception("workloads prewarm failed; the first preemption "
-                          "pays its first launch on the clock")
+            log.exception("workloads prewarm failed; the first constrained "
+                          "drain pays its first launches on the clock")
         return timings
+
+    def _warm_topo_planes(self, pods: list) -> None:
+        """The spread planes of ``pods`` on the resident cluster (their
+        gather and float64 contraction's first launches)."""
+        alg = self.config.algorithm
+        _, _, dc, _ = alg._compile(pods)
+        planes = alg._topo_planes(dc)
+        if planes is not None:
+            planes.rows()
 
     # -- run loops --------------------------------------------------------
 

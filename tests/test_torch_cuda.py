@@ -3,7 +3,9 @@ against its plain version, the scan kernel against its plain version (the
 step loop) on every case of ``perf/scan_check.py``, the single-pod
 select kernel (``kt_select_hosts``) against ``select_hosts_plain``, and
 drains, single-pod decisions, extender responses, the scheduler daemon
-and the preemption victim solve on ``cuda`` against the same on ``cpu``,
+the preemption victim solve, the topology spread planes and drain, and
+the joint solve's price iteration and placements (at f32 matmul
+precision "highest" and "high") on ``cuda`` against the same on ``cpu``,
 and a real CUDA out-of-memory error through the device guard.  They skip themselves where
 there is no CUDA device; on the card run ``python -m pytest
 tests/test_torch_cuda.py -m cuda -q --noconftest``.  This file imports no
@@ -301,3 +303,76 @@ def test_cuda_victim_solve_matches_cpu(cuda):
         out[dev.type] = [x.cpu() for x in got]
     for a, b in zip(out["cuda"], out["cpu"]):
         assert torch.equal(a, b)
+
+
+# -- topology spread and the joint solve -------------------------------------
+
+def _precision(precision: str):
+    """Set the f32 matmul precision; returns the restore callback."""
+    old = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision(precision)
+    return lambda: torch.set_float32_matmul_precision(old)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["highest", "high"])
+def test_cuda_topology_planes_match_cpu(cuda, precision):
+    """Term tables with counts past 2,048 (TF32 would round them) and a
+    spread-annotated stream drain: planes, placements and counter
+    identical on cuda and cpu at either matmul precision."""
+    from kubernetes_tpu_torch.engine.workloads import topology
+    rng = np.random.RandomState(11)
+    t, d, n, p = 8, 64, 5000, 512
+    terms = topology.SpreadTerms(
+        key_col=rng.randint(0, 3, t).astype(np.int32),
+        max_skew=rng.randint(1, 4, t).astype(np.float32),
+        hard=rng.rand(t) < 0.5,
+        counts=rng.randint(0, 30000, (t, d)).astype(np.float32),
+        valid=rng.rand(t, d) < 0.8, src=rng.rand(p, t) < 0.4,
+        any_hard=True, any_soft=True)
+    topo_dom = rng.randint(-1, d, (n, 3)).astype(np.int32)
+    restore = _precision(precision)
+    try:
+        planes = []
+        for dev in (cuda, torch.device("cpu")):
+            tp = topology.TermPlanes(terms,
+                                     torch.from_numpy(topo_dom).to(dev))
+            planes.append([x.cpu() for x in tp.rows(0, p + 64)])
+        out = {}
+        for dev in ("cuda", "cpu"):
+            eng, pods = synth.make_rig(300, 700, profile="mixed",
+                                       device=dev)
+            synth.add_spread_constraints(pods)
+            got = [x for _, ch in eng.schedule_batch_stream(
+                pods, chunk_size=256) for x in ch]
+            out[dev] = (got, int(eng.last_node_index))
+    finally:
+        restore()
+    for a, b in zip(*planes):
+        assert torch.equal(a, b)
+    assert out["cuda"] == out["cpu"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["highest", "high"])
+def test_cuda_solve_joint_matches_cpu(cuda, precision):
+    """The price iteration's bias and key bit for bit, and the joint
+    solve's placements and counter, on cuda against cpu."""
+    restore = _precision(precision)
+    try:
+        out = {}
+        for dev in ("cuda", "cpu"):
+            eng, pods = synth.make_rig(200, 1500, profile="mixed",
+                                       device=dev)
+            synth.add_spread_constraints(pods)
+            _, db, dc, _ = eng._compile(pods)
+            bias, key = eng.solver._price_iterate(db, dc, 24)
+            got = eng.schedule_batch(pods, joint=True)
+            out[dev] = (bias.cpu().view(torch.int32),
+                        key.cpu().view(torch.int32), got,
+                        int(eng.last_node_index))
+    finally:
+        restore()
+    c, h = out["cuda"], out["cpu"]
+    assert torch.equal(c[0], h[0]) and torch.equal(c[1], h[1])
+    assert c[2:] == h[2:]

@@ -401,8 +401,9 @@ def test_prewarm_runs_its_plan_and_arms_the_build_watchdog():
     d = daemon("port", 16, floor=16, _PAD_LIMIT=64)
     try:
         plan = d.prewarm_plan()
-        assert plan == ["scan_chunk@16", "scan_chunk@32", "scan_chunk@64",
-                        "select_hosts@1", "select_rows@1", "victim_solve"]
+        assert plan == ["oneshot_topo@16", "scan_chunk@16", "scan_chunk@32",
+                        "scan_chunk@64", "select_hosts@1", "select_rows@1",
+                        "topo_planes", "victim_solve"]
         timings = d.prewarm()
         assert sorted(timings) == [16, 32, 64]
         # On the CPU nothing is built and select_rows has no launch.

@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from kubernetes_tpu.api import types as rapi
 from kubernetes_tpu_torch.api import types as tapi
 from kubernetes_tpu_torch.engine.generic_scheduler import GenericScheduler
 
@@ -107,24 +108,29 @@ def test_empty_inputs():
 
 
 def test_paths_of_later_slices_raise_not_implemented():
-    _, _, t_eng, t_pods = _pair("mixed")
-    pod = t_pods[0]
-    with pytest.raises(NotImplementedError, match="joint"):
-        t_eng.schedule_batch([pod], joint=True)
-    # Preemption has landed (tests/test_torch_preemption.py): a pod
-    # without priority never preempts, and the victim table is built.
-    assert t_eng.find_preemptions([pod]) == []
+    """Every engine path of the later slices has landed: the joint solve
+    (tests/test_torch_joint.py), preemption (tests/test_torch_
+    preemption.py) and topology spread (tests/test_torch_topology.py)
+    now run and decide as the reference does; none raises."""
+    r_eng, r_pods, t_eng, t_pods = _pair("mixed")
+    assert t_eng.schedule_batch([t_pods[0]], joint=True) == \
+        r_eng.schedule_batch([r_pods[0]], joint=True)
+    # A pod without priority never preempts, and the victim table is
+    # built.
+    assert t_eng.find_preemptions([t_pods[0]]) == []
     vt = t_eng.cache.victim_table(4)
     assert vt.req.shape == (len(t_eng.cache.nodes()), 4, 4)
-    spread = tapi.Pod(name="s", namespace="default", annotations={
-        tapi.TOPOLOGY_SPREAD_ANNOTATION_KEY: json.dumps([{
-            "maxSkew": 1, "topologyKey": tapi.ZONE_LABEL,
-            "whenUnsatisfiable": "DoNotSchedule",
-            "labelSelector": {"matchLabels": {"app": "x"}}}])})
-    with pytest.raises(NotImplementedError, match="topology"):
-        t_eng.schedule_batch([spread])
-    with pytest.raises(NotImplementedError, match="topology"):
-        t_eng.schedule(spread)
+    got, want = [], []
+    for api_mod, eng, out in ((tapi, t_eng, got), (rapi, r_eng, want)):
+        spread = api_mod.Pod(
+            name="s", namespace="default", labels={"app": "x"},
+            annotations={api_mod.TOPOLOGY_SPREAD_ANNOTATION_KEY: json.dumps(
+                [{"maxSkew": 1, "topologyKey": api_mod.ZONE_LABEL,
+                  "whenUnsatisfiable": "DoNotSchedule",
+                  "labelSelector": {"matchLabels": {"app": "x"}}}])})
+        out += [eng.schedule_batch([spread]), eng.schedule(spread),
+                int(eng.last_node_index)]
+    assert got == want
 
 
 def test_cuda_device_without_a_card_raises():

@@ -102,6 +102,13 @@ def torch_rig(profile: str, n_nodes: int, n_pods: int,
     return eng, t_synth.make_pods(n_pods, profile=profile, n_services=4)
 
 
+def annotate(pods, seed: int = 5, share: float = 0.4):
+    """Spread constraints on ``pods`` of either package, drawn by
+    ``perf/synth.py:add_spread_constraints`` (the same draws and the same
+    annotation text for both packages, whose label keys are equal)."""
+    return t_synth.add_spread_constraints(pods, seed=seed, share=share)
+
+
 def host_inputs(eng, pods):
     """(batch, host DeviceBatch, host DeviceCluster, node tensors) from
     the reference's host-only compile — numpy throughout."""
