@@ -15,13 +15,15 @@ fails the run with a non-zero exit:
    N = 5,000 with CUDA events;
 2b. scan kernel against plain: ``scan_chunk`` against the step loop on
    the card (``perf/scan_check.py``: choices, counter and every carried
-   state tensor bit for bit, two chunks per case), then one 2,048-pod
-   chunk at 5,000 nodes timed with CUDA events against its byte bound
-   and the step loop;
-3. card against CPU: the streamed drain of a reduced ``mixed`` rig
-   (through the scan kernel) and of a ``rich`` rig (through the step
-   loop and the select kernel) on ``cuda`` and on ``cpu`` must place
-   every pod identically, with the same counter;
+   state tensor bit for bit, two chunks per case, the ``mixed`` cases
+   and the ``rich`` ones, with each rig's term axes), then one 2,048-pod
+   chunk at 5,000 nodes of the ``mixed`` and of the ``rich`` north-star
+   rig, each timed with CUDA events (the launch alone, with its hoist
+   and term lists, and the step loop) against its bound, and each
+   kernel route's result held against the step loop's bit for bit;
+3. card against CPU: the streamed drain of a reduced ``mixed`` rig and
+   of a ``rich`` rig, both through the scan kernel, on ``cuda`` and on
+   ``cpu`` must place every pod identically, with the same counter;
 4. full width: the streamed drain of the north-star ``mixed`` rig
    (5,000 nodes x 30,000 pods, chunk 2048) through the scan kernel,
    checked for index range, node capacity and one kernel launch per
@@ -91,15 +93,25 @@ fails the run with a non-zero exit:
    split (evaluate, 24 price iterations, order and permutation, the
    repair scan, readback, assume/bind);
 15. harnesses: ``perf/parity.run_parity`` (1,000 x 10,000 ``rich``, 200
-   sampled decisions) on the card with at least 99% agreement with the
-   oracle, then ``run_preemption_parity`` and ``gang_bench`` at their
-   defaults with no partial gang bound.
+   sampled decisions, one one-shot scan launch) on the card with at
+   least 99% agreement with the oracle, then ``run_preemption_parity``
+   and ``gang_bench`` at their defaults with no partial gang bound;
+16. the ``rich`` north star: the streamed drain of 5,000 ``rich`` nodes
+   x 30,000 ``rich`` pods (chunk 2048) through the scan kernel, one
+   launch per chunk and no select launch; the safety checks (no node
+   over its cpu, memory or pods, no host port twice on a node, no
+   read-write disk shared on a node, no node over its EBS or GCE
+   maximum, no two pods of one required anti-affinity group on one
+   host: 0 of each allowed); a second drain split into ``_compile``,
+   the hoist, the term lists, the scan and the readback; the term axes;
+   and about 200 sampled decisions against the oracle (``perf/parity``,
+   at least 99% agreement).
 
 Phase 2b includes the f32 route of the joint repair and topology spread:
 a non-integral score bias and an extra mask with all-false rows.  It
 prints one ``{"kernels": [...]}`` line (with each kernel's launches on
 its phase's path, in the two daemon runs of phase 9 and on the paths of
-phases 13-15), then the card line, and last ``{"ok": true, "device":
+phases 13-16), then the card line, and last ``{"ok": true, "device":
 {...}}``.
 """
 
@@ -117,11 +129,12 @@ import urllib.request
 import numpy as np
 
 # Published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, the
-# non-tensor-core f32 rate and the int32 rate (half of it), for the
-# least-time bound of each kernel.
+# non-tensor-core f32 rate, the int32 rate (half of it) and the
+# non-tensor-core f64 rate, for the least-time bound of each kernel.
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 INT32_OPS_PER_S = 33.5e12
+F64_OPS_PER_S = 34e12
 
 
 def fail(msg: str) -> None:
@@ -189,9 +202,13 @@ def device_time_per_call(fn, reps: int = 30, inner: int = 200) -> float:
 
 def synced(acc: dict, key: str, fn):
     """``fn`` wrapped so each call is synchronised before and after and
-    its seconds are added to ``acc[key]``."""
+    its seconds are added to ``acc[key]`` (its attributes, such as a
+    launch count, carried over)."""
+    import functools
+
     import torch
 
+    @functools.wraps(fn)
     def call(*a, **k):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -296,19 +313,31 @@ def phase_kernel(dev) -> dict:
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
 
 
-def scan_bound(enc, kw: dict) -> tuple[float, str]:
-    from kubernetes_tpu_torch.perf.scan_check import STATE
+def scan_bound(enc, kw: dict, init: dict | None = None,
+               after: dict | None = None) -> tuple[float, str]:
+    from kubernetes_tpu_torch.engine.scan import RICH_ARGS
+    from kubernetes_tpu_torch.perf.scan_check import RICH_STATE, STATE
 
     """Least time (ms) of one ``scan_chunk`` call and what sets it: each
     input read once, the carried state read once and written once, the
     choices written once; against the operations every (pod, node) step
     needs (f32: the select's two compares, the template add, the spread
     score and its zone blend, one add per weighted term; int32: the
-    resource fit)."""
+    resource fit).  The rich families count what this chunk's data needs:
+    each term list read once, the dense per-pod tables at their listed
+    entries, the carried planes in the rows and columns the lists name
+    (read) and in the elements the launch changed (``init`` against
+    ``after``, written); one int32 test per listed predicate term per
+    node, an f64 multiply-add per listed priority term per node, five
+    f32 operations per node for each service anti-affinity term and for
+    each pod with inter-pod priority terms, and two int32 compares per
+    node for each topology row the placed pods commit."""
+    import torch
+
     p, n = enc.shape
     nbytes = enc.numel() * enc.element_size() + p * 4
     for name, t in kw.items():
-        if hasattr(t, "element_size"):
+        if hasattr(t, "element_size") and name not in RICH_ARGS:
             once = t.numel() * t.element_size()
             nbytes += 2 * once if name in STATE else once
     f32 = 2
@@ -317,61 +346,111 @@ def scan_bound(enc, kw: dict) -> tuple[float, str]:
     for name, _w, _aux in kw.get("terms", ()):
         if name in ("SelectorSpreadPriority", "ServiceSpreadingPriority"):
             f32 += 6 + (7 if kw.get("sp_zone") is not None else 0)
-        else:
+        elif name not in ("InterPodAffinityPriority",
+                          "ServiceAntiAffinityPriority"):
             f32 += 8
         f32 += 1
     int32 = 7 if kw.get("use_resources") else 0
-    ops_ms = p * n * (f32 / F32_OPS_PER_S + int32 / INT32_OPS_PER_S) * 1e3
+    ops_s = p * n * (f32 / F32_OPS_PER_S + int32 / INT32_OPS_PER_S)
+
+    def entries(key):
+        lst = kw.get(key)
+        if lst is None:
+            return torch.zeros(0, dtype=torch.int32)
+        off, idx = lst
+        return idx[:int(off[-1])].cpu()
+
+    lists = {k: entries(k) for k in kw if k.endswith("_list")}
+    for key, (off, _idx) in ((k, kw[k]) for k in lists):
+        nbytes += off.numel() * 4 + lists[key].numel() * 4
+    nbytes += entries("aff_need_list").numel() + \
+        entries("pref_list").numel() * 4
+    # Rows (of [S, N] planes) and columns (of [N, C] planes) the chunk's
+    # lists name, read once.
+    named = {
+        "match_cnt": ("aff_need_list", "anti_need_list", "pref_list",
+                      "match_src_list"),
+        "decl_reach": ("decl_match_list", "decl_src_list"),
+        "sym_cnt": ("sym_match_list", "sym_src_list"),
+        "ports_used": ("ports_list",), "vol_any": ("vol_rw_list",),
+        "vol_rw": ("vol_ro_list", "vol_rw_list"),
+        "pd_ebs": ("ebs_list",), "pd_gce": ("gce_list",)}
+    for plane, keys in named.items():
+        t = kw.get(plane)
+        if t is None:
+            continue
+        rows = torch.unique(torch.cat([entries(k) for k in keys]))
+        other = t.shape[1] if plane in ("match_cnt", "decl_reach",
+                                        "sym_cnt") else t.shape[0]
+        nbytes += rows.numel() * other * t.element_size()
+    for name in ("match_total", "saa_cnt", "saa_num", "ebs_count",
+                 "gce_count"):
+        if kw.get(name) is not None:
+            nbytes += kw[name].numel() * kw[name].element_size()
+    for name in ("ebs_extra", "gce_extra", "ebs_node_extra",
+                 "gce_node_extra", "ebs_node_err", "gce_node_err",
+                 "node_dom", "match_key", "decl_key", "sym_key", "sym_w",
+                 "schedulable", "saa_group", "saa_dom", "saa_labeled"):
+        if kw.get(name) is not None:
+            nbytes += kw[name].numel() * kw[name].element_size()
+    if init is not None and after is not None:
+        for name in RICH_STATE:
+            if name in init and name in after:
+                a, b = init[name], after[name]
+                nbytes += int((a != b).sum()) * a.element_size()
+    preds = sum(entries(k).numel() for k in (
+        "ports_list", "vol_rw_list", "vol_ro_list", "ebs_list", "gce_list",
+        "aff_need_list", "anti_need_list", "decl_match_list"))
+    prio = entries("pref_list").numel() + entries("sym_match_list").numel()
+    commits = sum(entries(k).numel() for k in (
+        "match_src_list", "decl_src_list", "sym_src_list"))
+    ip_pods = 0
+    if kw.get("pref_list") is not None:
+        per_pod = (kw["pref_list"][0].diff() + kw["sym_match_list"][0]
+                   .diff()) > 0
+        ip_pods = int(per_pod.sum())
+    saa_terms = sum(1 for name, _w, _a in kw.get("terms", ())
+                    if name == "ServiceAntiAffinityPriority")
+    ops_s += n * ((preds + 2 * commits) / INT32_OPS_PER_S
+                  + 2 * prio / F64_OPS_PER_S
+                  + 5 * (ip_pods + p * saa_terms) / F32_OPS_PER_S)
+    ops_ms = ops_s * 1e3
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms
                                    else "operations")
 
 
-def phase_scan(dev) -> dict:
-    """scan_chunk against the step loop on every case of perf/scan_check,
-    then one north-star chunk timed."""
+def time_chunk(dev, profile: str, batch_pods: int | None = None) -> dict:
+    """One 2,048-pod chunk at 5,000 nodes of the ``profile`` north-star
+    rig (the first chunk of a ``batch_pods`` queue compiled as one batch,
+    when given): its kernel arguments captured, then the launch alone
+    (the state restored before each), the step loop and the kernel route
+    with its hoist and term lists, in turns.  Every run of a route starts
+    from the same inputs, and each must give the first step loop's
+    choices, counter and carried state bit for bit.  Returns the times
+    (ms), the bound, the largest difference, the batch's term axes and
+    the step loops' select launches."""
     import torch
+    from kubernetes_tpu_torch.engine import fused
     from kubernetes_tpu_torch.engine import scan as scan_mod
     from kubernetes_tpu_torch.perf import scan_check
 
-    worst = 0.0
-    n_steps = 0
-    for case in scan_check.cases(dev):
-        t0 = time.perf_counter()
-        try:
-            res = scan_check.run_routes(case)
-        except scan_check.ScanMismatch as err:
-            fail(f"scan kernel != step loop: {err}")
-        torch.cuda.synchronize()
-        if case.infeasible != (res["placed"] == 0):
-            fail(f"scan case {case.name!r} placed {res['placed']} pods")
-        worst = max(worst, res["max_abs_err"])
-        n_steps += res["steps"]
-        print(f"phase 2b: {case.name}: scan kernel == step loop (choices, "
-              f"counter, state bit for bit) over {res['steps']} steps in 2 "
-              f"chunks, {res['placed']} placed, "
-              f"{time.perf_counter() - t0:.3f} s")
-    print(f"phase 2b: all scan cases agree, {n_steps} steps, "
-          f"max_abs_err {worst}")
-
-    # One north-star chunk: its kernel arguments captured, then the launch
-    # alone (the state restored before each), the step loop and the kernel
-    # route with its hoist, in turns.
-    ns = scan_check.north_star_chunk(5000, CHUNK, dev)
+    ns = scan_check.north_star_chunk(5000, CHUNK, dev, profile=profile,
+                                     batch_pods=batch_pods)
     enc, kw, init = ns["enc"], ns["kw"], ns["init"]
 
-    def chunk(route: str) -> float:
+    def chunk(route: str) -> tuple[float, tuple]:
         counter = torch.zeros(1, dtype=torch.int64, device=dev)
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
         torch.cuda.synchronize()
         start.record()
-        ns["sched"].solver._solve_scan(ns["db"], ns["dc"], counter, None,
-                                       ns["flags"], None, None, None,
-                                       route=route)
+        out = ns["sched"].solver._solve_scan(
+            ns["db"], ns["dc"], counter, None, ns["flags"], None, None,
+            None, route=route)
         stop.record()
         stop.synchronize()
-        return start.elapsed_time(stop)
+        return start.elapsed_time(stop), out
 
     def kernel_once() -> float:
         for k, v in init.items():
@@ -385,23 +464,87 @@ def phase_scan(dev) -> dict:
         return start.elapsed_time(stop)
 
     k_ms = [kernel_once() for _ in range(5)]
-    p_ms = chunk("steps")
-    h_ms = [chunk("kernel") for _ in range(3)]
+    after = {k: kw[k].clone() for k in init}
+    before = fused.select_rows.launches
+    p_ms, ref = chunk("steps")
+    h_ms, runs = [], []
+    for _ in range(3):
+        ms, out = chunk("kernel")
+        h_ms.append(ms)
+        runs.append(("kernel", out))
     k_ms += [kernel_once() for _ in range(5)]
-    p2_ms = chunk("steps")
-    bound_ms, bound_by = scan_bound(enc, kw)
+    p2_ms, out = chunk("steps")
+    runs.append(("steps", out))
+    # The kernel routes launch no select kernel: these are the two step
+    # loops' launches, counted.
+    steps_select = fused.select_rows.launches - before
+    worst = 0.0
+    for i, (route, out) in enumerate(runs):
+        try:
+            worst = max(worst, scan_check.compare(
+                f"{profile} north-star chunk, {route} run {i} vs the step "
+                f"loop", out, ref))
+        except scan_check.ScanMismatch as err:
+            fail(f"scan kernel != step loop: {err}")
+    bound_ms, bound_by = scan_bound(enc, kw, init, after)
     p, n = enc.shape
     ms = statistics.median(k_ms)
     plain_ms = statistics.median([p_ms, p2_ms])
-    print(f"phase 2b: one chunk of {p} pods x {n} nodes ({enc.dtype}): "
-          f"kernel {ms:.6f} ms (median of {len(k_ms)}; min "
-          f"{min(k_ms):.6f}, max {max(k_ms):.6f}) = "
-          f"{ms / p * 1e3:.6f} us per step; with its hoist "
+    axes = scan_check.axis_sizes(ns["db"])
+    print(f"phase 2b: one {profile} chunk of {p} pods x {n} nodes "
+          f"({enc.dtype}; axes {axes}): kernel {ms:.6f} ms (median of "
+          f"{len(k_ms)}; min {min(k_ms):.6f}, max {max(k_ms):.6f}) = "
+          f"{ms / p * 1e3:.6f} us per step; with its hoist and term lists "
           f"{statistics.median(h_ms):.6f} ms; step loop {p_ms:.3f} / "
           f"{p2_ms:.3f} ms = {plain_ms / p * 1e3:.3f} us per step; bound "
-          f"{bound_ms:.6f} ms ({bound_by})")
-    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by}
+          f"{bound_ms:.6f} ms ({bound_by}); 3 kernel routes and the second "
+          f"step loop == the first step loop (choices, counter, state bit "
+          f"for bit), max_abs_err {worst}; {steps_select} select launches")
+    return {"ms": ms, "hoist_ms": statistics.median(h_ms),
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "axes": axes, "max_abs_err": worst,
+            "steps_select": steps_select}
+
+
+def phase_scan(dev) -> dict:
+    """scan_chunk against the step loop on every case of perf/scan_check,
+    then one mixed and one rich north-star chunk timed."""
+    import torch
+    from kubernetes_tpu_torch.engine import fused
+    from kubernetes_tpu_torch.perf import scan_check
+
+    worst = 0.0
+    n_steps = 0
+    select_before = fused.select_rows.launches
+    for case in scan_check.cases(dev):
+        t0 = time.perf_counter()
+        try:
+            res = scan_check.run_routes(case)
+        except scan_check.ScanMismatch as err:
+            fail(f"scan kernel != step loop: {err}")
+        torch.cuda.synchronize()
+        if case.infeasible != (res["placed"] == 0):
+            fail(f"scan case {case.name!r} placed {res['placed']} pods")
+        worst = max(worst, res["max_abs_err"])
+        n_steps += res["steps"]
+        print(f"phase 2b: {case.name}: scan kernel == step loop (choices, "
+              f"counter, state bit for bit) over {res['steps']} steps in 2 "
+              f"chunks, {res['placed']} placed, axes {res['axes']}, "
+              f"{time.perf_counter() - t0:.3f} s")
+    select_launches = fused.select_rows.launches - select_before
+    print(f"phase 2b: all scan cases agree, {n_steps} steps, "
+          f"max_abs_err {worst}; the step loop launched the select kernel "
+          f"{select_launches} times")
+    mixed = time_chunk(dev, "mixed")
+    # The rich chunk is the first of the 30,000-pod queue compiled as one
+    # batch, so its signature axes are the rich north star's.
+    rich = time_chunk(dev, "rich", batch_pods=30000)
+    worst = max(worst, mixed["max_abs_err"], rich["max_abs_err"])
+    return {"max_abs_err": worst, "ms": mixed["ms"],
+            "plain_ms": mixed["plain_ms"], "bound_ms": mixed["bound_ms"],
+            "bound_by": mixed["bound_by"], "rich": rich,
+            "select_launches": select_launches + mixed["steps_select"] +
+            rich["steps_select"]}
 
 
 def drain(sched, pods, chunk: int) -> tuple[list, float]:
@@ -440,8 +583,7 @@ def phase_parity(profile: str, nodes: int, pods: int, chunk: int) -> dict:
         fail(f"{profile}: cuda and cpu drains differ at pods {diff} "
              f"(counters {placements['cuda'][1]} vs {placements['cpu'][1]})")
     chunks = -(-pods // chunk)
-    want = {"scan_chunk": chunks, "select_rows": 0} if profile == "mixed" \
-        else {"scan_chunk": 0, "select_rows": chunks * chunk}
+    want = {"scan_chunk": chunks, "select_rows": 0}
     if launches != want:
         fail(f"{profile} drain launched {launches}, expected {want}")
     print(f"phase 3: {profile}: cuda placements and counter == cpu; "
@@ -449,24 +591,43 @@ def phase_parity(profile: str, nodes: int, pods: int, chunk: int) -> dict:
     return launches
 
 
-def split_drain(nodes: int, pods: int, chunk: int) -> dict:
+def split_drain(nodes: int, pods: int, chunk: int,
+                profile: str = "mixed") -> dict:
     """A drain whose wall time is split: ``_compile`` (host snapshot,
     feature compile and upload), each chunk's ``_solve_scan`` (the hoist
-    plus the scan, synchronised so it is charged to the card's work), and
-    the rest (the readback of each chunk's choices and the host code
-    around it)."""
-    from kubernetes_tpu_torch.perf import synth
+    plus the scan, synchronised so it is charged to the card's work) with
+    the rich families' term lists and the kernel launch inside it timed
+    apart, and the rest (the readback of each chunk's choices and the
+    host code around it)."""
+    from kubernetes_tpu_torch.engine import scan as scan_mod
+    from kubernetes_tpu_torch.perf import scan_check, synth
 
-    sched, plist = synth.make_rig(nodes, pods, profile="mixed",
+    sched, plist = synth.make_rig(nodes, pods, profile=profile,
                                   device="cuda")
-    acc = {"compile": 0.0, "scan": 0.0}
+    acc = {"compile": 0.0, "scan": 0.0, "lists": 0.0, "kernel": 0.0}
     solver = sched.solver
-    sched._compile = synced(acc, "compile", sched._compile)
+    real = {"term_lists": scan_mod.term_lists,
+            "scan_chunk": scan_mod.scan_chunk}
+    compiled = {}
+    compile_batch = sched._compile
+
+    def compile_and_keep(*a, **k):
+        out = compile_batch(*a, **k)
+        compiled["db"] = out[1]
+        return out
+
+    sched._compile = synced(acc, "compile", compile_and_keep)
     solver._solve_scan = synced(acc, "scan", solver._solve_scan)
+    scan_mod.term_lists = synced(acc, "lists", real["term_lists"])
+    scan_mod.scan_chunk = synced(acc, "kernel", real["scan_chunk"])
     try:
         _, secs = drain(sched, plist, chunk)
     finally:
         del solver._solve_scan
+        scan_mod.term_lists = real["term_lists"]
+        scan_mod.scan_chunk = real["scan_chunk"]
+    acc["axes"] = scan_check.axis_sizes(compiled["db"])
+    acc["hoist"] = acc["scan"] - acc["lists"] - acc["kernel"]
     acc["readback"] = secs - acc["compile"] - acc["scan"]
     acc["wall"] = secs
     return acc
@@ -1278,6 +1439,8 @@ def phase_guard(nodes: int, pods: int, card: str) -> None:
     from kubernetes_tpu_torch.perf import synth
     from kubernetes_tpu_torch.utils import metrics
 
+    # Cached blocks of earlier phases would serve part of the request.
+    torch.cuda.empty_cache()
     free, total = torch.cuda.mem_get_info()
     guard = DeviceGuard()
     try:
@@ -1712,7 +1875,8 @@ def phase_harness(card: str) -> dict:
     if rec["decision_agreement_pct"] < 99.0:
         fail(f"oracle agreement {rec['decision_agreement_pct']}% < 99%: "
              f"{rec['examples'][:3]}")
-    want = {"scan_chunk": 0, "select_rows": 10000, "select_hosts": 0}
+    # schedule_batch solves the 10,000 pods in one one-shot scan.
+    want = {"scan_chunk": 1, "select_rows": 0, "select_hosts": 0}
     if launches != want:
         fail(f"the parity drain launched {launches}, expected {want}")
     print(f"phase 15: {card}: oracle replay 1000 nodes x 10000 rich pods: "
@@ -1731,7 +1895,106 @@ def phase_harness(card: str) -> dict:
           f"admitted {gang['gangs_admitted']} of {gang['gangs_total']}, "
           f"partial gangs bound {gang['partial_gangs_bound']}, warm solve "
           f"{gang['warm_solve_s']} s")
-    return {"parity": launches["select_rows"]}
+    return {"parity": launches["scan_chunk"]}
+
+
+def rich_safety(sched, pods: list, out: list) -> dict:
+    """Violations of a drain's placements, each counted once: nodes over
+    their cpu, memory or pods; (node, host port) pairs held twice;
+    (node, disk) pairs mounted twice with one mount read-write; nodes
+    over their EBS or GCE maximum; (node, anti-affinity group) pairs
+    holding two pods of a group with a required hostname term."""
+    from collections import Counter
+
+    from kubernetes_tpu_torch.features.compiler import FeatureSpace
+
+    bound = {pod.key: node for pod, node in zip(pods, out)
+             if node is not None}
+    ports, disks = Counter(), {}
+    ebs, gce, groups = {}, {}, Counter()
+    for pod, node in zip(pods, out):
+        if node is None:
+            continue
+        for port in pod.used_host_ports():
+            ports[(node, port)] += 1
+        for vol in pod.volumes:
+            for token, ro in FeatureSpace.volume_tokens(vol):
+                disks.setdefault((node, token), []).append(ro)
+            if vol.aws_ebs_id:
+                ebs.setdefault(node, set()).add(vol.aws_ebs_id)
+            if vol.gce_pd_name:
+                gce.setdefault(node, set()).add(vol.gce_pd_name)
+        aff = pod.affinity()
+        if aff is not None and aff.pod_anti_affinity is not None and \
+                "kt/aa" in pod.labels:
+            groups[(node, pod.labels["kt/aa"])] += 1
+    extra = sched.solver.extra
+    return {
+        "over_capacity": over_capacity(sched, bound, pods),
+        "host_port_twice": sum(1 for c in ports.values() if c > 1),
+        "rw_disk_shared": sum(1 for ros in disks.values()
+                              if len(ros) > 1 and not all(ros)),
+        "over_max_ebs": sum(1 for v in ebs.values()
+                            if len(v) > extra["max_ebs"]),
+        "over_max_gce": sum(1 for v in gce.values()
+                            if len(v) > extra["max_gce"]),
+        "anti_affinity_group_twice": sum(1 for c in groups.values()
+                                         if c > 1),
+    }
+
+
+def phase_rich(nodes: int, pods: int, chunk: int, card: str) -> dict:
+    """16: the rich north star through the scan kernel: launches, the
+    safety checks, a split drain, the term axes and sampled oracle
+    agreement."""
+    import os
+
+    from kubernetes_tpu_torch.perf import parity, synth
+
+    sched, plist = synth.make_rig(nodes, pods, profile="rich",
+                                  device="cuda")
+    chunks = -(-pods // chunk)
+    zero_counts()
+    out, secs = drain(sched, plist, chunk)
+    launches = kernel_counts()
+    want = {"scan_chunk": chunks, "select_rows": 0, "select_hosts": 0}
+    if launches != want:
+        fail(f"the rich north star launched {launches}, expected {want}")
+    nt = sched.cache.snapshot()[0]
+    if any(x is not None and x not in nt.name_to_idx for x in out) or \
+            len(out) != pods:
+        fail("rich north star: a choice names no node")
+    checks = rich_safety(sched, plist, out)
+    if any(checks.values()):
+        fail(f"rich north star: safety checks {checks}")
+    placed = sum(x is not None for x in out)
+    print(f"phase 16: {card}: rich north star {nodes} nodes x {pods} pods "
+          f"(chunk {chunk}): {secs:.3f} s wall, {pods / secs:.1f} pods/s, "
+          f"placed {placed}; launches {launches}; safety checks {checks}")
+    split = split_drain(nodes, pods, chunk, profile="rich")
+    axes = split["axes"]
+    print(f"phase 16: split drain {nodes} x {pods}: {split['wall']:.3f} s "
+          f"wall = _compile {split['compile']:.3f} s + hoist "
+          f"{split['hoist']:.3f} s + term lists {split['lists']:.3f} s + "
+          f"scan {split['kernel']:.3f} s + readback and the rest "
+          f"{split['readback']:.3f} s ({pods / split['wall']:.1f} pods/s); "
+          f"term axes of the batch {axes}")
+    workers = min(8, os.cpu_count() or 1)
+    rec = parity.judge(synth.make_nodes(nodes, profile="rich", n_zones=4),
+                       plist, synth.make_services(4), out, seed=0,
+                       n_samples=200, workers=workers)
+    if rec["decision_agreement_pct"] < 99.0:
+        fail(f"rich north star: oracle agreement "
+             f"{rec['decision_agreement_pct']}% < 99%: "
+             f"{rec['examples'][:3]}")
+    print(f"phase 16: {card}: oracle replay of the rich north star: "
+          f"{rec['decision_agreement_pct']}% of {rec['sampled_decisions']} "
+          f"sampled decisions agree (bar 99%), infeasible choices "
+          f"{rec['infeasible_choices']}, replay {rec['replay_s']} s in "
+          f"{workers} processes")
+    return {"launches": launches["scan_chunk"], "wall": secs,
+            "split": split, "axes": axes,
+            "agreement_pct": rec["decision_agreement_pct"]}
 
 
 def main() -> int:
@@ -1791,20 +2054,23 @@ def main() -> int:
     topo = phase_topology(args.nodes, args.topology_pods, args.pods, card)
     joint = phase_joint(args.nodes, args.pods, card)
     harness = phase_harness(card)
+    rich16 = phase_rich(args.nodes, args.pods, CHUNK, card)
 
     kernels_line = [{
         "name": "select_rows",
         "route": "cuda",
         "source": "kubernetes_tpu_torch/csrc/select.cu",
         "replaces": "kubernetes_tpu/engine/fused.py:59",
-        # Its path is now the step loop (the rich drain); on the main path
-        # its body runs inlined in scan_chunk.
-        "path": f"rich drain {args.rich_nodes} x {args.rich_pods}",
-        "launches": rich["select_rows"],
+        # Its path is the step loop, the steps side of phase 2b; on the
+        # main path its body runs inlined in scan_chunk.
+        "path": "phase 2b step loop (every scan_check case and the two "
+                "timed chunks)",
+        "launches": sstats["select_launches"],
         "daemon_launches": {run: daemon[run]["counts"]["select_rows"]
                             for run in ("a", "b")},
         "launches_by_path": {"topology": 0, "joint": 0,
-                            "parity_rich": harness["parity"]},
+                            "rich_drain": rich["select_rows"],
+                            "parity_rich": 0, "rich_north_star": 0},
         "max_abs_err": kstats["max_abs_err"],
         "ms": kstats["ms"],
         "plain_ms": kstats["plain_ms"],
@@ -1822,13 +2088,18 @@ def main() -> int:
                             for run in ("a", "b")},
         "launches_by_path": {"topology": topo["stream"],
                             "joint": joint["quality"] + joint["north"],
-                            "parity_rich": 0},
+                            "rich_drain": rich["scan_chunk"],
+                            "parity_rich": harness["parity"],
+                            "rich_north_star": rich16["launches"]},
         "max_abs_err": sstats["max_abs_err"],
         "ms": sstats["ms"],
         "plain_ms": sstats["plain_ms"],
         "bound_ms": sstats["bound_ms"],
         "bound_by": sstats["bound_by"],
         "library_ms": None,
+        "rich_chunk": {k: sstats["rich"][k] for k in (
+            "ms", "hoist_ms", "plain_ms", "bound_ms", "bound_by", "axes",
+            "max_abs_err")},
     }, {
         "name": "select_hosts",
         "route": "cuda",

@@ -5,48 +5,81 @@
 // select_pallas) and the XLA scan body around it
 // (kubernetes_tpu/engine/solver.py:_fused_scan, the `step` closure).  It
 // runs the P dependent steps of the port's step loop
-// (kubernetes_tpu_torch/engine/solver.py:Solver._fused_scan) for the
-// `mixed` family set, decision- and bit-identical to that loop:
+// (kubernetes_tpu_torch/engine/solver.py:Solver._fused_scan), decision-
+// and bit-identical to that loop, for every family the loop carries:
 //
-//   dynamic PodFitsResources; LeastRequested, MostRequested and
-//   BalancedResourceAllocation, template-factored (a carried [T, N]
-//   plane D) or computed in the step; selector/service spread from
-//   carried per-group maxima, with the zone blend; the round-robin
-//   counter.
+//   mixed: dynamic PodFitsResources; LeastRequested, MostRequested and
+//     BalancedResourceAllocation, template-factored (a carried [T, N]
+//     plane D) or computed in the step; selector/service spread from
+//     carried per-group maxima, with the zone blend; the round-robin
+//     counter;
+//   rich (the RICH instantiation): PodFitsHostPorts against the carried
+//     ports_used; NoDiskConflict against vol_any / vol_rw; MaxEBS and
+//     MaxGCE volume counts against carried per-node counts;
+//     MatchInterPodAffinity (required affinity with the self-match
+//     escape, required anti-affinity, existing pods' anti-affinity);
+//     InterPodAffinityPriority (a 0-anchored min-max over the
+//     schedulable nodes); ServiceAntiAffinityPriority; and the commit of
+//     each, including the topology rows of ops/interpod.py:place_update.
 //
 // For each pod i, in order:
 //   1. widen the encoded row enc[i, :] (f32 or f16; -inf marks a node
 //      that is statically infeasible) to f32;
-//   2. add D[tmpl[i], :], then each dynamic priority in the step loop's
+//   2. (rich) when the pod has inter-pod priority terms, its counts on
+//      this thread's nodes and, in one barrier, their maximum and
+//      minimum over the schedulable nodes;
+//   3. add D[tmpl[i], :], then each dynamic priority in the step loop's
 //      order (acc + w * plane; the multiply is skipped when w == 1);
-//   3. fold dynamic PodFitsResources into -inf;
-//   4. selectHost (the body of csrc/select.cu): max, ties when the max is
+//   4. fold dynamic PodFitsResources and the rich predicates into -inf;
+//   5. selectHost (the body of csrc/select.cu): max, ties when the max is
 //      finite (a NaN anywhere gives none), ix = (uint32) counter %
 //      max(n, 1), the ix-th tie in node order or -1;
-//   5. when placed at j: packed[j] += [request, nonzero]; recompute
+//   6. when placed at j: packed[j] += [request, nonzero]; recompute
 //      D[:, j]; sp_node[:, j] += incr and fold sp_maxn; the zone column
-//      and sp_maxz when node j has a zone;
-//   6. bump the counter when there were ties.
+//      and sp_maxz when node j has a zone; (rich) set the pod's port,
+//      volume and disk bits in row j, bump the disk counts, add the pod
+//      to the affinity rows of every node in j's topology, and to the
+//      service anti-affinity counts;
+//   7. bump the counter when there were ties.
 // Pad rows are -inf everywhere: they place nothing and bump nothing.
 // The carried state is updated in place; `choices` gets one int32 per
 // pod and `counter` the final value (low 32 bits, as a uint32).
+//
+// Sparse term lists.  A rich family's per-pod operand is a row of a
+// [P, S] bool (or weight) table, with S in the hundreds at full width
+// (one affinity signature per anti-affinity replica group), while a pod
+// has 0-2 set entries.  The wrapper (engine/scan.py:term_lists) turns
+// each table into a per-pod list once per chunk, with torch ops on the
+// card and no host sync: offsets [P + 1] and the set columns, in order.
+// A step walks only its pod's entries, each over the thread's nodes,
+// instead of a dense [S] x [S, N] contraction.
 //
 // Exactness: every f32 operation is an explicit round-to-nearest
 // intrinsic (__fadd_rn, __fmul_rn, __fdiv_rn), the library is built
 // with --fmad=false besides, and no fast math.  Constants are the f32
 // roundings of the step loop's Python constants.  Integer priorities
-// keep int32 wrap-around and floor division (ops/priorities.py).
+// keep int32 wrap-around and floor division (ops/priorities.py).  The
+// rich families add only sums of whole numbers: 0/1 incidences,
+// integer weights and integer counts.  The disk totals are computed in
+// int32 (the step loop's f32 sums of the same integers are exact below
+// 2^24); the inter-pod priority counts are summed in f64, exact below
+// 2^53, and rounded to f32 once, as ops/interpod.py:priority_counts
+// does, so the order of the terms cannot move a bit; every carried
+// count gains 1.0 by one __fadd_rn, as the step loop's add does.  A
+// pod without inter-pod priority terms skips that term: its plane is
+// 0.0 on every node, and adding it changes no comparison of the step.
 //
 // Bound.  Per chunk the kernel must read enc once (P x N x 4 bytes in
 // f32: 2,048 x 5,000 x 4 = 41 MB at the north star) and the carried
 // state once and write it once (packed, D, the spread planes: about
-// 1 MB), about 12.5 us at 3.35 TB/s.  Its real limit is elsewhere: the
+// 1 MB; the rich planes only in the rows and columns the chunk's terms
+// name), about 12.5 us at 3.35 TB/s.  Its real limit is elsewhere: the
 // steps are serially dependent, so one CTA runs them all, and each step
 // is a serial chain -- the per-node work of K nodes per thread, one
-// block barrier for the pick, two more when a pod is placed -- on one
-// SM.  (Measured on an H100 with perf/scan_ablation.py: the per-node
-// work, not the barriers, takes most of the step.)  What the design
-// does about it:
+// block barrier for the pick (two with inter-pod priority terms), two
+// more when a pod is placed -- on one SM.  (Measured on an H100 with
+// perf/scan_ablation.py: the per-node work, not the barriers, takes
+// most of a mixed step.)  What the design does about it:
 //
 //   * one CTA of up to 1,024 threads; each warp owns a contiguous run of
 //     32 * K nodes, lane l the nodes l, l + 32, ... of it (loads stay
@@ -56,26 +89,42 @@
 //     publishes (its max, its ties at that max, a NaN flag) and every
 //     warp reduces the published values itself with shuffles, so every
 //     thread learns the maximum, the tie total and its warp's offset at
-//     once; the warp holding the ix-th tie finds it with ballots;
+//     once; the warp holding the ix-th tie finds it with ballots; the
+//     inter-pod priority's maximum and minimum are published the same
+//     way, in one more barrier;
 //   * the step's scores stay in registers (K per thread), and the next
 //     pod's enc values are loaded into registers while the current step
 //     runs, so the HBM read of enc is off the serial chain; no dynamic
-//     shared memory is needed (under 1 KB of static shared memory);
+//     shared memory is needed (under 2 KB of static shared memory);
+//   * the rich per-node work walks each of the pod's term lists once,
+//     with the thread's K node slots inside: the predicates leave a
+//     bitmask of failing slots, the inter-pod counts K f64 sums, so the
+//     list loads are shared by the slots and the slots' loads overlap;
 //   * the commit is spread over threads: the picking lane adds the
 //     request to packed[j], thread t recomputes D[t, j], thread s
-//     updates spread group s;
+//     updates spread group s, thread q sets the pod's q-th port, volume
+//     or disk bit, and the whole block walks the N nodes for each
+//     topology row of the placed pod;
 //   * the published per-warp values are double-buffered, so a step that
-//     places nothing needs no barrier after the pick.
+//     places nothing needs no barrier after the pick;
+//   * the rich code is a template parameter: the mixed instantiations
+//     are the kernel as it was, with no extra registers or branches.
 //
-// The small carried state (packed, D, sp_node, the maxima) lives in
-// device memory and stays in the SM's L1 and the L2: only this CTA
-// touches it.  Since the per-node work of K nodes per thread sets the
-// step time, the next moves are cheaper per-node work (node-invariant
-// data and fit state in shared memory, a per-(group, zone) spread table,
-// the next pod's D and sp_node values loaded a step ahead), then a
-// thread-block cluster with the node axis split over its CTAs' shared
-// memory (distributed shared memory), at the cost of a cluster barrier
-// per step.
+// The small carried state (packed, D, sp_node, the maxima, the rich
+// planes) lives in device memory and stays in the SM's L1 and the L2:
+// only this CTA touches it.  A rich step of the rich north star costs
+// about twice a mixed one (17.3 against 9.1 us at 5,000 nodes on an
+// H100 80GB HBM3, chip_smoke.py phase 2b): a pod matching a service
+// carries up to 9 symmetric priority rows, summed over its nodes, and a
+// second barrier for their maximum and minimum, and each matching row
+// of a placed pod is committed over all N nodes.  Since the per-node
+// work of K nodes per thread sets the step time, the next moves are
+// cheaper per-node work (node-invariant data and fit state in shared
+// memory, a per-(group, zone) spread table, the next pod's D, sp_node
+// and term offsets loaded a step ahead, a commit that visits only the
+// nodes of the placed node's domain), then a thread-block cluster with
+// the node axis split over its CTAs' shared memory (distributed shared
+// memory), at the cost of a cluster barrier per step.
 //
 // Limits: N <= 16,384 (K <= 16 nodes per thread at 1,024 threads),
 // at most 8 dynamic priority terms.  The wrapper checks both.
@@ -97,6 +146,8 @@ constexpr int kLeast = 0;
 constexpr int kMost = 1;
 constexpr int kBalanced = 2;
 constexpr int kSpread = 3;
+constexpr int kInterPod = 4;
+constexpr int kServiceAnti = 5;
 
 // f32 roundings of the step loop's Python constants.
 constexpr float kNodeShare = static_cast<float>(1.0 - 2.0 / 3.0);
@@ -105,6 +156,60 @@ constexpr float kClampMin = static_cast<float>(1e-9);
 constexpr float kTruncEps = static_cast<float>(1e-5);
 
 }  // namespace
+
+// One per-pod term list (engine/scan.py:term_lists): row i's set
+// columns of a [P, S] table, in order, at idx[off[i]] .. idx[off[i+1]-1].
+struct TermList {
+  const int* off;  // [P + 1]
+  const int* idx;  // [P * S]
+};
+
+// One disk family of MaxEBSVolumeCount / MaxGCEPDVolumeCount.
+struct PdArgs {
+  TermList pod;                   // the pod's volume ids [P, W]
+  const int* extra;               // [P] un-dedupable new volumes
+  const int* node_extra;          // [N]
+  const unsigned char* node_err;  // [N] bool
+  unsigned char* node;            // [N, W] bool carried
+  int* count;                     // [N] set bits of each node row, carried
+  int w, limit, on;
+};
+
+// The rich families' arguments (RICH instantiation only).
+struct RichArgs {
+  TermList ports;                    // PodFitsHostPorts: [P, Cp]
+  unsigned char* ports_used;         // [N, Cp] carried
+  TermList vol_rw, vol_ro;           // NoDiskConflict: [P, W]
+  unsigned char* vol_any;            // [N, W] carried
+  unsigned char* node_vol_rw;        // [N, W] carried
+  PdArgs ebs, gce;
+  TermList aff_need, anti_need;      // MatchInterPodAffinity: [P, Sm]
+  TermList decl_match;               // [P, Sd]
+  const unsigned char* aff_self;     // [P, Sm] bool
+  const int* node_dom;               // [Kd, N] domain ids, -1 absent
+  const int* match_key;              // [Sm] key row, -1 = any default
+  const int* decl_key;               // [Sd]
+  const int* sym_key;                // [Ss]
+  float* match_cnt;                  // [Sm, N] carried
+  float* match_total;                // [Sm] carried
+  unsigned char* decl_reach;         // [Sd, N] bool carried
+  float* sym_cnt;                    // [Ss, N] carried
+  TermList match_src, decl_src;      // the placed pod's rows: [P, Sm/Sd]
+  TermList sym_src;                  // [P, Ss]
+  TermList pref, sym_match;          // InterPodAffinityPriority
+  const float* pref_w;               // [P, Sm]
+  const float* sym_w;                // [Ss]
+  const unsigned char* schedulable;  // [N] bool
+  const int* saa_group;              // ServiceAntiAffinityPriority: [P]
+  TermList saa_src;                  // [P, Gy]
+  const int* saa_dom;                // [L, N]
+  const unsigned char* saa_labeled;  // [L, N] bool
+  float* saa_cnt;                    // [L, Gy, D] carried
+  float* saa_num;                    // [Gy] carried
+  int cp, vw, sm, sd, ss, kd, n_default, l, gy, dd;
+  int use_ports, use_volumes, use_interpod, track_affinity, track_saa;
+  int use_interpod_prio;
+};
 
 // Mirrors engine/scan.py:_ScanArgs field for field.
 struct ScanArgs {
@@ -135,6 +240,9 @@ struct ScanArgs {
   float term_w[kMaxTerms];
   int tmpl_kind[kMaxTerms];
   float tmpl_w[kMaxTerms];
+  int term_aux[kMaxTerms];            // policy-argument row (service anti)
+  int rich;
+  RichArgs r;
 };
 
 namespace {
@@ -220,6 +328,265 @@ __device__ float resource_prio(int kind, int p0, int p1, int q0, int q1,
   return (cpu_frac >= 1.0f || mem_frac >= 1.0f) ? 0.0f : score;
 }
 
+// -- the rich families ------------------------------------------------------
+
+// The node slots of a thread: slot k is node wbase + 32 k + lane.
+template <int K>
+struct Slots {
+  int base, lane, n;
+  __device__ __forceinline__ int node(int k) const {
+    return base + 32 * k + lane;
+  }
+  __device__ __forceinline__ bool live(int k) const { return node(k) < n; }
+};
+
+// MaxEBSVolumeCount / MaxGCEPDVolumeCount on the thread's slots
+// (engine/solver.py: sum(node row) + node extra + new - overlap <= limit
+// and no node error; a pod bringing no new volume passes).  Sets bit k
+// of `bad` where slot k fails.
+template <int K>
+__device__ __forceinline__ void pd_mask(const PdArgs& f, int i,
+                                        const Slots<K>& sl, unsigned& bad) {
+  const int lo = f.pod.off[i];
+  const int hi = f.pod.off[i + 1];
+  const int fresh = hi - lo + f.extra[i];
+  if (fresh == 0) return;
+  int overlap[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) overlap[k] = 0;
+  for (int q = lo; q < hi; ++q) {
+    const int c = f.pod.idx[q];
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      if (sl.live(k)) {
+        overlap[k] += f.node[static_cast<size_t>(sl.node(k)) * f.w + c] != 0;
+      }
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    if (!sl.live(k)) continue;
+    const int j = sl.node(k);
+    const int total = f.count[j] + f.node_extra[j] + fresh - overlap[k];
+    if (!(total <= f.limit && !f.node_err[j])) bad |= 1u << k;
+  }
+}
+
+// A node-major [N, W] bool plane tested at the listed columns of pod i:
+// bit k of `bad` where slot k has any of them set.
+template <int K>
+__device__ __forceinline__ void column_mask(const TermList& t,
+                                            const unsigned char* plane,
+                                            int w, int i, const Slots<K>& sl,
+                                            unsigned& bad) {
+  for (int q = t.off[i]; q < t.off[i + 1]; ++q) {
+    const int c = t.idx[q];
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      if (sl.live(k) && plane[static_cast<size_t>(sl.node(k)) * w + c]) {
+        bad |= 1u << k;
+      }
+    }
+  }
+}
+
+// The rich predicates of pod i on the thread's slots, each term list
+// walked once with all K slots inside: bit k set where slot k fails.
+template <int K>
+__device__ __forceinline__ unsigned rich_mask(const RichArgs& r, int i,
+                                              const Slots<K>& sl) {
+  unsigned bad = 0;
+  const int n = sl.n;
+  if (r.use_ports) column_mask(r.ports, r.ports_used, r.cp, i, sl, bad);
+  if (r.use_volumes) {
+    column_mask(r.vol_rw, r.vol_any, r.vw, i, sl, bad);
+    column_mask(r.vol_ro, r.node_vol_rw, r.vw, i, sl, bad);
+  }
+  if (r.ebs.on) pd_mask(r.ebs, i, sl, bad);
+  if (r.gce.on) pd_mask(r.gce, i, sl, bad);
+  if (r.use_interpod) {
+    // ops/interpod.py:predicate_mask: a required term is live unless it
+    // matches the pod itself and nothing matches it yet.
+    for (int q = r.aff_need.off[i]; q < r.aff_need.off[i + 1]; ++q) {
+      const int s = r.aff_need.idx[q];
+      if (r.aff_self[static_cast<size_t>(i) * r.sm + s] &&
+          r.match_total[s] == 0.0f) {
+        continue;
+      }
+      const float* row = r.match_cnt + static_cast<size_t>(s) * n;
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        if (sl.live(k) && !(row[sl.node(k)] > 0.0f)) bad |= 1u << k;
+      }
+    }
+    for (int q = r.anti_need.off[i]; q < r.anti_need.off[i + 1]; ++q) {
+      const float* row =
+          r.match_cnt + static_cast<size_t>(r.anti_need.idx[q]) * n;
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        if (sl.live(k) && row[sl.node(k)] > 0.0f) bad |= 1u << k;
+      }
+    }
+    for (int q = r.decl_match.off[i]; q < r.decl_match.off[i + 1]; ++q) {
+      const unsigned char* row =
+          r.decl_reach + static_cast<size_t>(r.decl_match.idx[q]) * n;
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        if (sl.live(k) && row[sl.node(k)]) bad |= 1u << k;
+      }
+    }
+  }
+  return bad;
+}
+
+// ops/interpod.py:priority_counts of pod i on the thread's slots: the
+// pod's preferred weights against the matching pods, plus the symmetric
+// terms, summed exactly in f64 and rounded once.
+template <int K>
+__device__ __forceinline__ void interpod_counts(const RichArgs& r, int i,
+                                                const Slots<K>& sl,
+                                                float* out) {
+  const int n = sl.n;
+  double c[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) c[k] = 0.0;
+  for (int q = r.pref.off[i]; q < r.pref.off[i + 1]; ++q) {
+    const int s = r.pref.idx[q];
+    const double w = r.pref_w[static_cast<size_t>(i) * r.sm + s];
+    const float* row = r.match_cnt + static_cast<size_t>(s) * n;
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      if (sl.live(k)) {
+        c[k] = __dadd_rn(c[k], __dmul_rn(w, row[sl.node(k)]));
+      }
+    }
+  }
+  for (int q = r.sym_match.off[i]; q < r.sym_match.off[i + 1]; ++q) {
+    const int s = r.sym_match.idx[q];
+    const double w = r.sym_w[s];
+    const float* row = r.sym_cnt + static_cast<size_t>(s) * n;
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      if (sl.live(k)) {
+        c[k] = __dadd_rn(c[k], __dmul_rn(w, row[sl.node(k)]));
+      }
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < K; ++k) out[k] = __double2float_rn(c[k]);
+}
+
+// engine/solver.py:saa_plane at node j for label row l and service
+// group gy with peer total num.
+__device__ __forceinline__ float saa_score(const RichArgs& r, int l, int gy,
+                                           float num, int j, int n) {
+  const size_t at = static_cast<size_t>(l) * n + j;
+  if (!r.saa_labeled[at]) return 0.0f;
+  if (!(num > 0.0f)) return 10.0f;
+  const float per =
+      r.saa_cnt[(static_cast<size_t>(l) * r.gy + gy) * r.dd + r.saa_dom[at]];
+  return trunc_eps(__fdiv_rn(__fmul_rn(10.0f, __fsub_rn(num, per)),
+                             clamp_min(num, 1.0f)));
+}
+
+// ops/interpod.py:topo_rows: is node x in the same topology as node j
+// under key row `key` (-1: any default failure-domain key)?
+__device__ __forceinline__ bool same_topology(const RichArgs& r, int n,
+                                              int key, int x, int j) {
+  if (key >= 0) {
+    const int* row = r.node_dom + static_cast<size_t>(key) * n;
+    const int dx = row[x];
+    return dx >= 0 && dx == row[j];
+  }
+  for (int d = 0; d < r.n_default; ++d) {
+    const int* row = r.node_dom + static_cast<size_t>(d) * n;
+    const int dx = row[x];
+    if (dx >= 0 && dx == row[j]) return true;
+  }
+  return false;
+}
+
+// Topology rows of the placed pod's terms in `src`, over all nodes:
+// counts gain 1.0 (match_cnt, sym_cnt) or reach is set (decl_reach).
+__device__ void commit_rows(const RichArgs& r, const TermList& src,
+                            const int* keys, float* cnt,
+                            unsigned char* reach, int i, int j, int n) {
+  for (int q = src.off[i]; q < src.off[i + 1]; ++q) {
+    const int s = src.idx[q];
+    const int key = keys[s];
+    const size_t row = static_cast<size_t>(s) * n;
+    for (int x = threadIdx.x; x < n; x += blockDim.x) {
+      if (!same_topology(r, n, key, x, j)) continue;
+      if (cnt != nullptr) cnt[row + x] = __fadd_rn(cnt[row + x], 1.0f);
+      if (reach != nullptr) reach[row + x] = 1;
+    }
+  }
+}
+
+// The pod's new disks in row j, one thread per disk; the row's count
+// gains one per bit that was not set.
+__device__ __forceinline__ void pd_commit(const PdArgs& pd, int i, int j) {
+  unsigned char* row = pd.node + static_cast<size_t>(j) * pd.w;
+  for (int q = pd.pod.off[i] + threadIdx.x; q < pd.pod.off[i + 1];
+       q += blockDim.x) {
+    unsigned char* bit = row + pd.pod.idx[q];
+    if (!*bit) {
+      *bit = 1;
+      atomicAdd(pd.count + j, 1);
+    }
+  }
+}
+
+// The rich commit of pod i at node j, spread over the block.
+__device__ __forceinline__ void rich_commit(const RichArgs& r, int i, int j,
+                                            int n) {
+  const int t = threadIdx.x;
+  const int nt = blockDim.x;
+  if (r.use_ports) {
+    unsigned char* used = r.ports_used + static_cast<size_t>(j) * r.cp;
+    for (int q = r.ports.off[i] + t; q < r.ports.off[i + 1]; q += nt) {
+      used[r.ports.idx[q]] = 1;
+    }
+  }
+  if (r.use_volumes) {
+    const size_t row = static_cast<size_t>(j) * r.vw;
+    for (int q = r.vol_rw.off[i] + t; q < r.vol_rw.off[i + 1]; q += nt) {
+      r.vol_any[row + r.vol_rw.idx[q]] = 1;
+      r.node_vol_rw[row + r.vol_rw.idx[q]] = 1;
+    }
+    for (int q = r.vol_ro.off[i] + t; q < r.vol_ro.off[i + 1]; q += nt) {
+      r.vol_any[row + r.vol_ro.idx[q]] = 1;
+    }
+  }
+  if (r.ebs.on) pd_commit(r.ebs, i, j);
+  if (r.gce.on) pd_commit(r.gce, i, j);
+  if (r.track_affinity) {
+    for (int q = r.match_src.off[i] + t; q < r.match_src.off[i + 1];
+         q += nt) {
+      const int s = r.match_src.idx[q];
+      r.match_total[s] = __fadd_rn(r.match_total[s], 1.0f);
+    }
+    commit_rows(r, r.match_src, r.match_key, r.match_cnt, nullptr, i, j, n);
+    commit_rows(r, r.decl_src, r.decl_key, nullptr, r.decl_reach, i, j, n);
+    commit_rows(r, r.sym_src, r.sym_key, r.sym_cnt, nullptr, i, j, n);
+  }
+  if (r.track_saa) {
+    for (int q = r.saa_src.off[i] + t; q < r.saa_src.off[i + 1]; q += nt) {
+      const int g = r.saa_src.idx[q];
+      r.saa_num[g] = __fadd_rn(r.saa_num[g], 1.0f);
+      for (int l = 0; l < r.l; ++l) {
+        const size_t at = static_cast<size_t>(l) * n + j;
+        if (!r.saa_labeled[at]) continue;
+        float* c = r.saa_cnt +
+                   (static_cast<size_t>(l) * r.gy + g) * r.dd + r.saa_dom[at];
+        *c = __fadd_rn(*c, 1.0f);
+      }
+    }
+  }
+}
+
+// -- the kernel -------------------------------------------------------------
+
 __device__ __forceinline__ float widen(float v) { return v; }
 __device__ __forceinline__ float widen(__half v) { return __half2float(v); }
 
@@ -243,6 +610,14 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
+__device__ __forceinline__ float warp_min(float v) {
+  for (int o = 16; o > 0; o >>= 1) {
+    const float w = __shfl_xor_sync(kFull, v, o);
+    v = w < v ? w : v;
+  }
+  return v;
+}
+
 __device__ __forceinline__ int warp_inclusive_sum(int v, int lane) {
   for (int o = 1; o < 32; o <<= 1) {
     const int t = __shfl_up_sync(kFull, v, o);
@@ -251,15 +626,17 @@ __device__ __forceinline__ int warp_inclusive_sum(int v, int lane) {
   return v;
 }
 
-template <int K, typename EncT>
+template <int K, typename EncT, bool RICH>
 __global__ void __launch_bounds__(kMaxThreads)
 scan_chunk_kernel(const ScanArgs a) {
   // Per-warp (max, ties at that max, NaN flag), double-buffered by step
   // parity so that a step that places nothing needs no barrier after
-  // its pick.
+  // its pick; with RICH, the inter-pod counts' (max, min) likewise.
   __shared__ float s_wmax[2][kMaxWarps];
   __shared__ int s_wcnt[2][kMaxWarps];
   __shared__ int s_wnan[2][kMaxWarps];
+  __shared__ float s_cmax[2][RICH ? kMaxWarps : 1];
+  __shared__ float s_cmin[2][RICH ? kMaxWarps : 1];
   __shared__ int s_choice;
 
   const int lane = threadIdx.x & 31;
@@ -268,6 +645,7 @@ scan_chunk_kernel(const ScanArgs a) {
   const int n = a.n;
   const int wbase = warp * 32 * K;  // this warp's first node
   const EncT* enc = static_cast<const EncT*>(a.enc);
+  const RichArgs& r = a.r;
 
   uint32_t ctr = static_cast<uint32_t>(
       static_cast<unsigned long long>(a.counter[0]));
@@ -315,8 +693,60 @@ scan_chunk_kernel(const ScanArgs a) {
         g_zones = a.has_zones[g] != 0;
       }
     }
+    int saa_g = 0;
+    float saa_n = 0.0f;
+    if constexpr (RICH) {
+      if (r.track_saa) {
+        saa_g = r.saa_group[i];
+        saa_n = r.saa_num[saa_g];
+      }
+    }
 
-    // 1-3. Scores of this thread's nodes.
+    // 2. The inter-pod priority counts of this thread's nodes, and their
+    // block max and min over the schedulable nodes (one barrier).  A pod
+    // without terms has counts 0.0 everywhere, hence a 0.0 plane.
+    float ipc[RICH ? K : 1] = {};
+    float ip_min = 0.0f, ip_den = 0.0f;
+    bool ip_on = false;
+    const Slots<K> sl{wbase, lane, n};
+    if constexpr (RICH) {
+      if (r.use_interpod_prio) {
+        ip_on = r.pref.off[i] < r.pref.off[i + 1] ||
+                r.sym_match.off[i] < r.sym_match.off[i + 1];
+      }
+      if (ip_on) {
+        interpod_counts(r, i, sl, ipc);
+        float cmax = -INFINITY, cmin = INFINITY;
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+          const int j = sl.node(k);
+          if (j >= n || !r.schedulable[j]) continue;
+          cmax = ipc[k] > cmax ? ipc[k] : cmax;
+          cmin = ipc[k] < cmin ? ipc[k] : cmin;
+        }
+        cmax = warp_max(cmax);
+        cmin = warp_min(cmin);
+        if (lane == 0) {
+          s_cmax[buf][warp] = cmax;
+          s_cmin[buf][warp] = cmin;
+        }
+        __syncthreads();
+        const float gmax =
+            warp_max(lane < nwarps ? s_cmax[buf][lane] : -INFINITY);
+        const float gmin =
+            warp_min(lane < nwarps ? s_cmin[buf][lane] : INFINITY);
+        // torch.clamp(max, min=0) and torch.clamp(min, max=0).
+        const float max_c = gmax < 0.0f ? 0.0f : gmax;
+        ip_min = gmin > 0.0f ? 0.0f : gmin;
+        ip_den = __fsub_rn(max_c, ip_min);
+      }
+    }
+
+    // The rich predicates of this thread's nodes (bit k: slot k fails).
+    unsigned rich_bad = 0;
+    if constexpr (RICH) rich_bad = rich_mask(r, i, sl);
+
+    // 3-4. Scores of this thread's nodes.
     float tmax = -INFINITY;
     int tnan = 0;
 #pragma unroll
@@ -350,6 +780,16 @@ scan_chunk_kernel(const ScanArgs a) {
             if (g_zones && node_zone && maxz > 0.0f) fsc = blended;
           }
           plane = trunc_eps(fsc);
+        } else if (RICH && kind == kInterPod) {
+          if (!ip_on) continue;  // a 0.0 plane
+          plane = ip_den > 0.0f
+                      ? trunc_eps(__fdiv_rn(
+                            __fmul_rn(10.0f, __fsub_rn(ipc[RICH ? k : 0],
+                                                       ip_min)),
+                            clamp_min(ip_den, kClampMin)))
+                      : 0.0f;
+        } else if (RICH && kind == kServiceAnti) {
+          plane = saa_score(r, a.term_aux[q], saa_g, saa_n, j, n);
         } else {
           plane = resource_prio(kind, pn0, pn1, pk[4], pk[5], __ldg(al + 0),
                                 __ldg(al + 1));
@@ -363,12 +803,13 @@ scan_chunk_kernel(const ScanArgs a) {
                               r2 <= wsub(__ldg(al + 2), pk[2]);
         if (!(fits_pods && (zero_req || fits_res))) acc = -INFINITY;
       }
+      if (RICH && ((rich_bad >> k) & 1u)) acc = -INFINITY;
       sc[k] = acc;
       tnan |= acc != acc;
       tmax = acc > tmax ? acc : tmax;
     }
 
-    // 4. selectHost.  Each warp publishes its max, its ties at that max
+    // 5. selectHost.  Each warp publishes its max, its ties at that max
     // and a NaN flag ...
     const float wm = warp_max(tmax);
     const int wnan = __any_sync(kFull, tnan);
@@ -429,7 +870,7 @@ scan_chunk_kernel(const ScanArgs a) {
     }
     __syncthreads();
 
-    // 5. Commit at j (packed[j] is already updated).
+    // 6. Commit at j (packed[j] is already updated).
     const int j = s_choice;
     if (a.use_templates) {
       const int q0 = a.packed[6 * j + 4];
@@ -468,7 +909,8 @@ scan_chunk_kernel(const ScanArgs a) {
         }
       }
     }
-    // 6. The counter.
+    if constexpr (RICH) rich_commit(r, i, j, n);
+    // 7. The counter.
     ++ctr;
     __syncthreads();
   }
@@ -477,14 +919,20 @@ scan_chunk_kernel(const ScanArgs a) {
   }
 }
 
-template <int K>
-cudaError_t launch_k(const ScanArgs& a, int threads, cudaStream_t stream) {
+template <int K, bool RICH>
+cudaError_t launch_kr(const ScanArgs& a, int threads, cudaStream_t stream) {
   if (a.half) {
-    scan_chunk_kernel<K, __half><<<1, threads, 0, stream>>>(a);
+    scan_chunk_kernel<K, __half, RICH><<<1, threads, 0, stream>>>(a);
   } else {
-    scan_chunk_kernel<K, float><<<1, threads, 0, stream>>>(a);
+    scan_chunk_kernel<K, float, RICH><<<1, threads, 0, stream>>>(a);
   }
   return cudaGetLastError();
+}
+
+template <int K>
+cudaError_t launch_k(const ScanArgs& a, int threads, cudaStream_t stream) {
+  return a.rich ? launch_kr<K, true>(a, threads, stream)
+                : launch_kr<K, false>(a, threads, stream);
 }
 
 }  // namespace
@@ -511,4 +959,10 @@ extern "C" int kt_scan_chunk(const ScanArgs* args, void* stream) {
   KT_SCAN_KS(KT_SCAN_CASE)
 #undef KT_SCAN_CASE
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// sizeof(ScanArgs), for the wrapper's check that its ctypes mirror has
+// the same layout.
+extern "C" int kt_scan_args_size() {
+  return static_cast<int>(sizeof(ScanArgs));
 }

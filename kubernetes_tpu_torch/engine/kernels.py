@@ -110,5 +110,7 @@ def library() -> ctypes.CDLL:
                 lib.kt_scan_chunk.argtypes = [ctypes.c_void_p,
                                               ctypes.c_void_p]
                 lib.kt_scan_chunk.restype = ctypes.c_int
+                lib.kt_scan_args_size.argtypes = []
+                lib.kt_scan_args_size.restype = ctypes.c_int
                 _lib = lib
     return _lib

@@ -1,19 +1,30 @@
 """The sequential-greedy scan of a whole chunk in one CUDA launch.
 
 :func:`scan_chunk` wraps the kernel of ``csrc/scan.cu``, which runs the P
-dependent steps of ``Solver._fused_scan``'s step loop for the ``mixed``
-family set in one CTA: dynamic PodFitsResources, the template-factored
-or in-step resource priorities, selector/service spread with or without
-zones, and selectHost inlined.  It replaces, on the card, the per-pod
-launches of the select kernel and of the ~120 small PyTorch kernels
-around it.
+dependent steps of ``Solver._fused_scan``'s step loop in one CTA, for
+every family the loop carries: dynamic PodFitsResources, the
+template-factored or in-step resource priorities, selector/service
+spread with or without zones, and selectHost inlined (the ``mixed``
+set); host ports, NoDiskConflict, the MaxEBS/MaxGCE volume counts, the
+inter-pod affinity predicate and priority with their carried topology
+state, and service anti-affinity (the ``rich`` set, compiled as a
+separate instantiation of the kernel).  It replaces, on the card, the
+per-pod launches of the select kernel and of the ~120 small PyTorch
+kernels around it.
+
+The rich families' per-pod operands are [P, S] tables whose rows hold
+0-2 set entries while S is in the hundreds; :func:`term_lists` turns
+each into per-pod lists (offsets and set columns, in order) with torch
+ops and no host sync, so a step walks only its pod's own terms.  Every
+rich sum is a sum of whole numbers, so the kernel equals the step loop
+bit for bit (``csrc/scan.cu`` sets out the argument).
 
 Its plain version is the step loop itself (``engine/solver.py``), which
-``tests/test_torch_solver.py`` pins to the JAX package; the kernel is
-held against it bit for bit on the card (``chip_smoke.py``,
-``tests/test_torch_cuda.py``).  :func:`takes` is the dispatch predicate:
-``_fused_scan`` sends a chunk on CUDA tensors here when it holds no
-family beyond ``mixed``, and to the step loop otherwise.
+``tests/test_torch_solver.py`` and ``tests/test_torch_scan_rich.py`` pin
+to the JAX package; the kernel is held against it bit for bit on the card
+(``chip_smoke.py``, ``tests/test_torch_cuda.py``).  The kernel carries
+every family of the step, so ``_fused_scan`` sends every chunk on CUDA
+tensors here.
 
 :func:`scan_chunk` takes CUDA tensors only, launches on the current
 stream, never synchronises, raises on a failed launch, and counts its
@@ -27,24 +38,89 @@ import ctypes
 import torch
 
 from kubernetes_tpu_torch.engine.kernels import library
+from kubernetes_tpu_torch.ops.interpod import N_DEFAULT_KEYS
 
 # Dynamic priority -> term kind of csrc/scan.cu.
 TERM_KINDS = {"LeastRequestedPriority": 0, "MostRequestedPriority": 1,
               "BalancedResourceAllocation": 2, "SelectorSpreadPriority": 3,
-              "ServiceSpreadingPriority": 3}
+              "ServiceSpreadingPriority": 3, "InterPodAffinityPriority": 4,
+              "ServiceAntiAffinityPriority": 5}
 SPREAD_KIND = 3
+INTERPOD_KIND = 4
+SERVICE_ANTI_KIND = 5
 MAX_TERMS = 8
 MAX_NODES = 16384
 
-# Scan families (``_solve_scan``'s ``fams``) the kernel does not carry:
-# a chunk holding any of them runs the step loop.
-RICH_FAMILIES = ("use_ports", "use_volumes", "use_max_ebs", "use_max_gce",
-                 "use_interpod", "track_affinity", "track_saa")
+def term_lists(dense: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-pod lists of a [P, S] table's set entries: (``off`` [P + 1],
+    ``idx`` [P * S]) int32, row p's set columns in order at
+    ``idx[off[p]:off[p + 1]]``.  Torch ops only, and no host sync: the
+    entries are placed by a stable partition of the flattened table (set
+    entries first, in row-major order, the unset ones after them), so
+    every position is written once and the size is known in advance."""
+    p, s = dense.shape
+    dev = dense.device
+    i32 = torch.int32
+    flat = dense.reshape(-1)
+    if flat.numel() == 0:
+        return (torch.zeros(p + 1, dtype=i32, device=dev),
+                torch.zeros(0, dtype=i32, device=dev))
+    incl = torch.cumsum(flat, 0, dtype=torch.int64)       # set entries <= k
+    k = torch.arange(flat.numel(), dtype=torch.int64, device=dev)
+    dest = torch.where(flat, incl - 1, incl[-1] + k - incl)
+    cols = (k % s).to(i32)
+    idx = torch.empty_like(cols).scatter_(0, dest, cols)
+    off = torch.cat([torch.zeros(1, dtype=i32, device=dev),
+                     incl.view(p, s)[:, -1].to(i32)])
+    return off, idx
 
 
-def takes(fams: dict) -> bool:
-    """Whether the kernel carries every family of ``fams``."""
-    return not any(fams[f] for f in RICH_FAMILIES)
+class _TermList(ctypes.Structure):
+    """csrc/scan.cu ``TermList``."""
+
+    _fields_ = [("off", ctypes.c_void_p), ("idx", ctypes.c_void_p)]
+
+
+class _PdArgs(ctypes.Structure):
+    """csrc/scan.cu ``PdArgs``."""
+
+    _fields_ = [
+        ("pod", _TermList), ("extra", ctypes.c_void_p),
+        ("node_extra", ctypes.c_void_p), ("node_err", ctypes.c_void_p),
+        ("node", ctypes.c_void_p), ("count", ctypes.c_void_p),
+        ("w", ctypes.c_int), ("limit", ctypes.c_int), ("on", ctypes.c_int),
+    ]
+
+
+class _RichArgs(ctypes.Structure):
+    """csrc/scan.cu ``RichArgs``, field for field."""
+
+    _fields_ = [
+        ("ports", _TermList), ("ports_used", ctypes.c_void_p),
+        ("vol_rw", _TermList), ("vol_ro", _TermList),
+        ("vol_any", ctypes.c_void_p), ("node_vol_rw", ctypes.c_void_p),
+        ("ebs", _PdArgs), ("gce", _PdArgs),
+        ("aff_need", _TermList), ("anti_need", _TermList),
+        ("decl_match", _TermList), ("aff_self", ctypes.c_void_p),
+        ("node_dom", ctypes.c_void_p), ("match_key", ctypes.c_void_p),
+        ("decl_key", ctypes.c_void_p), ("sym_key", ctypes.c_void_p),
+        ("match_cnt", ctypes.c_void_p), ("match_total", ctypes.c_void_p),
+        ("decl_reach", ctypes.c_void_p), ("sym_cnt", ctypes.c_void_p),
+        ("match_src", _TermList), ("decl_src", _TermList),
+        ("sym_src", _TermList), ("pref", _TermList),
+        ("sym_match", _TermList), ("pref_w", ctypes.c_void_p),
+        ("sym_w", ctypes.c_void_p), ("schedulable", ctypes.c_void_p),
+        ("saa_group", ctypes.c_void_p), ("saa_src", _TermList),
+        ("saa_dom", ctypes.c_void_p), ("saa_labeled", ctypes.c_void_p),
+        ("saa_cnt", ctypes.c_void_p), ("saa_num", ctypes.c_void_p),
+        ("cp", ctypes.c_int), ("vw", ctypes.c_int), ("sm", ctypes.c_int),
+        ("sd", ctypes.c_int), ("ss", ctypes.c_int), ("kd", ctypes.c_int),
+        ("n_default", ctypes.c_int), ("l", ctypes.c_int),
+        ("gy", ctypes.c_int), ("dd", ctypes.c_int),
+        ("use_ports", ctypes.c_int), ("use_volumes", ctypes.c_int),
+        ("use_interpod", ctypes.c_int), ("track_affinity", ctypes.c_int),
+        ("track_saa", ctypes.c_int), ("use_interpod_prio", ctypes.c_int),
+    ]
 
 
 class _ScanArgs(ctypes.Structure):
@@ -70,6 +146,8 @@ class _ScanArgs(ctypes.Structure):
         ("term_w", ctypes.c_float * MAX_TERMS),
         ("tmpl_kind", ctypes.c_int * MAX_TERMS),
         ("tmpl_w", ctypes.c_float * MAX_TERMS),
+        ("term_aux", ctypes.c_int * MAX_TERMS),
+        ("rich", ctypes.c_int), ("r", _RichArgs),
     ]
 
 
@@ -85,18 +163,205 @@ def _check(name: str, t: torch.Tensor, dtype: torch.dtype,
     return t
 
 
-def _kinds(terms: tuple, what: str) -> tuple[list[int], list[float]]:
+def _check_list(name: str, lst, p: int, s: int) -> tuple:
+    """A :func:`term_lists` pair for a [p, s] table."""
+    if not isinstance(lst, tuple) or len(lst) != 2:
+        raise ValueError(f"scan_chunk: {name} must be an (off, idx) pair "
+                         f"from term_lists")
+    return (_check(f"{name} offsets", lst[0], torch.int32, (p + 1,)),
+            _check(f"{name} entries", lst[1], torch.int32, (p * s,)))
+
+
+def _width(name: str, t, dim: int) -> int:
+    if not isinstance(t, torch.Tensor) or t.dim() <= dim:
+        raise ValueError(f"scan_chunk: {name} must be a tensor with at "
+                         f"least {dim + 1} dimensions")
+    return int(t.shape[dim])
+
+
+def _kinds(terms: tuple, what: str) -> tuple[list[int], list[float],
+                                             list[int]]:
     if len(terms) > MAX_TERMS:
         raise ValueError(f"scan_chunk: at most {MAX_TERMS} {what}, got "
                          f"{len(terms)}")
-    kinds, weights = [], []
-    for name, weight, _aux in terms:
+    kinds, weights, aux = [], [], []
+    for name, weight, a in terms:
         if name not in TERM_KINDS:
             raise ValueError(f"scan_chunk: {name!r} is not a priority the "
                              f"kernel computes")
         kinds.append(TERM_KINDS[name])
         weights.append(float(weight))
-    return kinds, weights
+        aux.append(int(a))
+    return kinds, weights, aux
+
+
+def _rich_args(p: int, n: int, kinds: list[int], aux: list[int],
+               rich: dict) -> tuple[dict, dict, dict, dict]:
+    """Check the rich families' tensors.  Returns (tensors by field,
+    term lists by field, the two disk families' fields, the ints)."""
+    i32, f32, b8 = torch.int32, torch.float32, torch.bool
+    tensors, lists, ints = {}, {}, {}
+    pds = {}
+    unknown = set(rich) - RICH_ARGS
+    if unknown:
+        raise ValueError(f"scan_chunk: unknown arguments {sorted(unknown)}")
+
+    def given(*keys):
+        return any(rich.get(k) is not None for k in keys)
+
+    def need(what: str, *keys):
+        missing = [k for k in keys if rich.get(k) is None]
+        if missing:
+            raise ValueError(f"scan_chunk: {what} needs {missing}")
+
+    if given("ports_list", "ports_used"):
+        need("ports", "ports_list", "ports_used")
+        cp = _width("ports_used", rich["ports_used"], 1)
+        tensors["ports_used"] = _check("ports_used", rich["ports_used"], b8,
+                                       (n, cp))
+        lists["ports"] = _check_list("ports_list", rich["ports_list"], p, cp)
+        ints.update(cp=cp, use_ports=1)
+    if given("vol_rw_list", "vol_ro_list", "vol_any", "vol_rw"):
+        need("volumes", "vol_rw_list", "vol_ro_list", "vol_any", "vol_rw")
+        vw = _width("vol_any", rich["vol_any"], 1)
+        tensors["vol_any"] = _check("vol_any", rich["vol_any"], b8, (n, vw))
+        tensors["node_vol_rw"] = _check("vol_rw", rich["vol_rw"], b8, (n, vw))
+        lists["vol_rw"] = _check_list("vol_rw_list", rich["vol_rw_list"], p,
+                                      vw)
+        lists["vol_ro"] = _check_list("vol_ro_list", rich["vol_ro_list"], p,
+                                      vw)
+        ints.update(vw=vw, use_volumes=1)
+    for fam in ("ebs", "gce"):
+        keys = (f"{fam}_list", f"{fam}_extra", f"{fam}_node_extra",
+                f"{fam}_node_err", f"pd_{fam}", f"{fam}_count",
+                f"max_{fam}")
+        if not given(*keys):
+            continue
+        need(f"max_{fam}", *keys)
+        w = _width(f"pd_{fam}", rich[f"pd_{fam}"], 1)
+        pds[fam] = {
+            "pod": _check_list(f"{fam}_list", rich[f"{fam}_list"], p, w),
+            "extra": _check(f"{fam}_extra", rich[f"{fam}_extra"], i32, (p,)),
+            "node_extra": _check(f"{fam}_node_extra",
+                                 rich[f"{fam}_node_extra"], i32, (n,)),
+            "node_err": _check(f"{fam}_node_err", rich[f"{fam}_node_err"],
+                               b8, (n,)),
+            "node": _check(f"pd_{fam}", rich[f"pd_{fam}"], b8, (n, w)),
+            "count": _check(f"{fam}_count", rich[f"{fam}_count"], i32, (n,)),
+            "w": w, "limit": int(rich[f"max_{fam}"]), "on": 1}
+    affinity = ("node_dom", "match_key", "decl_key", "sym_key", "match_cnt",
+                "match_total", "decl_reach", "sym_cnt", "match_src_list",
+                "decl_src_list", "sym_src_list")
+    interpod = ("aff_need_list", "aff_self", "anti_need_list",
+                "decl_match_list")
+    prio = ("pref_list", "pref_w", "sym_match_list", "sym_w", "schedulable")
+    if given(*affinity) or given(*interpod) or given(*prio) or \
+            INTERPOD_KIND in kinds:
+        need("the inter-pod affinity state", *affinity)
+        kd = _width("node_dom", rich["node_dom"], 0)
+        sm = _width("match_cnt", rich["match_cnt"], 0)
+        sd = _width("decl_reach", rich["decl_reach"], 0)
+        ss = _width("sym_cnt", rich["sym_cnt"], 0)
+        tensors.update(
+            node_dom=_check("node_dom", rich["node_dom"], i32, (kd, n)),
+            match_key=_check("match_key", rich["match_key"], i32, (sm,)),
+            decl_key=_check("decl_key", rich["decl_key"], i32, (sd,)),
+            sym_key=_check("sym_key", rich["sym_key"], i32, (ss,)),
+            match_cnt=_check("match_cnt", rich["match_cnt"], f32, (sm, n)),
+            match_total=_check("match_total", rich["match_total"], f32,
+                               (sm,)),
+            decl_reach=_check("decl_reach", rich["decl_reach"], b8, (sd, n)),
+            sym_cnt=_check("sym_cnt", rich["sym_cnt"], f32, (ss, n)))
+        lists.update(
+            match_src=_check_list("match_src_list", rich["match_src_list"],
+                                  p, sm),
+            decl_src=_check_list("decl_src_list", rich["decl_src_list"], p,
+                                 sd),
+            sym_src=_check_list("sym_src_list", rich["sym_src_list"], p, ss))
+        ints.update(kd=kd, sm=sm, sd=sd, ss=ss, track_affinity=1,
+                    n_default=min(N_DEFAULT_KEYS, kd))
+        if given(*interpod):
+            need("the inter-pod affinity predicate", *interpod)
+            tensors["aff_self"] = _check("aff_self", rich["aff_self"], b8,
+                                         (p, sm))
+            lists.update(
+                aff_need=_check_list("aff_need_list", rich["aff_need_list"],
+                                     p, sm),
+                anti_need=_check_list("anti_need_list",
+                                      rich["anti_need_list"], p, sm),
+                decl_match=_check_list("decl_match_list",
+                                       rich["decl_match_list"], p, sd))
+            ints["use_interpod"] = 1
+        if given(*prio) or INTERPOD_KIND in kinds:
+            if INTERPOD_KIND not in kinds:
+                raise ValueError("scan_chunk: pref_list given without an "
+                                 "InterPodAffinityPriority term")
+            need("an InterPodAffinityPriority term", *prio)
+            tensors.update(
+                pref_w=_check("pref_w", rich["pref_w"], f32, (p, sm)),
+                sym_w=_check("sym_w", rich["sym_w"], f32, (ss,)),
+                schedulable=_check("schedulable", rich["schedulable"], b8,
+                                   (n,)))
+            lists.update(
+                pref=_check_list("pref_list", rich["pref_list"], p, sm),
+                sym_match=_check_list("sym_match_list",
+                                      rich["sym_match_list"], p, ss))
+            ints["use_interpod_prio"] = 1
+    saa = ("saa_group", "saa_src_list", "saa_dom", "saa_labeled", "saa_cnt",
+           "saa_num")
+    if given(*saa) or SERVICE_ANTI_KIND in kinds:
+        if SERVICE_ANTI_KIND not in kinds:
+            raise ValueError("scan_chunk: saa_cnt given without a "
+                             "ServiceAntiAffinityPriority term")
+        need("a ServiceAntiAffinityPriority term", *saa)
+        cnt = rich["saa_cnt"]
+        if not isinstance(cnt, torch.Tensor) or cnt.dim() != 3:
+            raise ValueError("scan_chunk: saa_cnt must be a [L, Gy, D] "
+                             "tensor")
+        nl, gy, dd = (int(x) for x in cnt.shape)
+        tensors.update(
+            saa_group=_check("saa_group", rich["saa_group"], i32, (p,)),
+            saa_dom=_check("saa_dom", rich["saa_dom"], i32, (nl, n)),
+            saa_labeled=_check("saa_labeled", rich["saa_labeled"], b8,
+                               (nl, n)),
+            saa_cnt=_check("saa_cnt", cnt, f32, (nl, gy, dd)),
+            saa_num=_check("saa_num", rich["saa_num"], f32, (gy,)))
+        lists["saa_src"] = _check_list("saa_src_list", rich["saa_src_list"],
+                                       p, gy)
+        bad = [x for k, x in zip(kinds, aux)
+               if k == SERVICE_ANTI_KIND and not 0 <= x < nl]
+        if bad:
+            raise ValueError(f"scan_chunk: service anti-affinity rows {bad} "
+                             f"outside [0, {nl})")
+        ints.update(l=nl, gy=gy, dd=dd, track_saa=1)
+    return tensors, lists, pds, ints
+
+
+# Every keyword argument of the rich families.
+RICH_ARGS = frozenset((
+    "ports_list", "ports_used", "vol_rw_list", "vol_ro_list", "vol_any",
+    "vol_rw", *(f"{f}_{k}" for f in ("ebs", "gce")
+                for k in ("list", "extra", "node_extra", "node_err",
+                          "count")),
+    "pd_ebs", "pd_gce", "max_ebs", "max_gce", "node_dom", "match_key",
+    "decl_key", "sym_key", "match_cnt", "match_total", "decl_reach",
+    "sym_cnt", "match_src_list", "decl_src_list", "sym_src_list",
+    "aff_need_list", "aff_self", "anti_need_list", "decl_match_list",
+    "pref_list", "pref_w", "sym_match_list", "sym_w", "schedulable",
+    "saa_group", "saa_src_list", "saa_dom", "saa_labeled", "saa_cnt",
+    "saa_num"))
+
+
+def _library() -> ctypes.CDLL:
+    """The kernel library, checked to lay ``ScanArgs`` out as
+    :class:`_ScanArgs` does."""
+    lib = library()
+    size = lib.kt_scan_args_size()
+    if size != ctypes.sizeof(_ScanArgs):
+        raise RuntimeError(f"scan_chunk: ScanArgs is {size} bytes in "
+                           f"csrc/scan.cu, {ctypes.sizeof(_ScanArgs)} in "
+                           f"its ctypes mirror")
+    return lib
 
 
 def scan_chunk(enc: torch.Tensor, *, request: torch.Tensor,
@@ -114,7 +379,8 @@ def scan_chunk(enc: torch.Tensor, *, request: torch.Tensor,
                node_zone: torch.Tensor | None = None,
                has_zones: torch.Tensor | None = None,
                sp_zone: torch.Tensor | None = None,
-               sp_maxz: torch.Tensor | None = None) -> torch.Tensor:
+               sp_maxz: torch.Tensor | None = None,
+               **rich) -> torch.Tensor:
     """Run one chunk's P scan steps in one launch; returns ``choices``
     [P] int32 (-1 = unplaced).
 
@@ -133,6 +399,33 @@ def scan_chunk(enc: torch.Tensor, *, request: torch.Tensor,
       f32;
     * zones (``sp_zone`` given, needs spread): ``node_zone`` [N] int32,
       ``has_zones`` [S] bool, ``sp_zone`` [S, Z] and ``sp_maxz`` [S] f32.
+
+    The rich families come as keyword arguments, each ``*_list`` a
+    :func:`term_lists` pair of the pod-axis table it names, and each
+    family on when its arguments are given:
+
+    * host ports: ``ports_list`` [P, Cp], ``ports_used`` [N, Cp] bool;
+    * volumes: ``vol_rw_list``, ``vol_ro_list`` [P, W], ``vol_any`` and
+      ``vol_rw`` [N, W] bool;
+    * disk counts, for ``fam`` in ebs and gce: ``{fam}_list`` [P, W],
+      ``{fam}_extra`` [P] and ``{fam}_node_extra`` [N] int32,
+      ``{fam}_node_err`` [N] bool, ``pd_{fam}`` [N, W] bool,
+      ``{fam}_count`` [N] int32 (the set bits of each ``pd_{fam}`` row,
+      kept up to date in place) and ``max_{fam}`` (an int);
+    * the inter-pod state: ``node_dom`` [Kd, N], ``match_key`` [Sm],
+      ``decl_key`` [Sd], ``sym_key`` [Ss] int32, ``match_cnt`` [Sm, N]
+      and ``match_total`` [Sm] f32, ``decl_reach`` [Sd, N] bool,
+      ``sym_cnt`` [Ss, N] f32, and the placed pod's rows
+      ``match_src_list``, ``decl_src_list``, ``sym_src_list``;
+    * its predicate: ``aff_need_list``, ``anti_need_list`` [P, Sm],
+      ``aff_self`` [P, Sm] bool, ``decl_match_list`` [P, Sd];
+    * its priority (an ``InterPodAffinityPriority`` term): ``pref_list``
+      (of ``pref_w != 0``), ``pref_w`` [P, Sm] f32, ``sym_match_list``
+      [P, Ss], ``sym_w`` [Ss] f32, ``schedulable`` [N] bool;
+    * service anti-affinity (``ServiceAntiAffinityPriority`` terms, aux =
+      the label row): ``saa_group`` [P] int32, ``saa_src_list`` [P, Gy],
+      ``saa_dom`` [L, N] int32, ``saa_labeled`` [L, N] bool, ``saa_cnt``
+      [L, Gy, D] and ``saa_num`` [Gy] f32.
 
     ``terms`` are the other dynamic priorities as (name, weight, aux), in
     the step loop's order."""
@@ -156,10 +449,11 @@ def scan_chunk(enc: torch.Tensor, *, request: torch.Tensor,
         "packed": _check("packed", packed, i32, (n, 6)),
         "counter": _check("counter", counter, torch.int64, (1,)),
     }
-    kinds, weights = _kinds(tuple(terms), "dynamic priority terms")
-    tmpl_kinds, tmpl_weights = _kinds(tuple(tmpl_terms), "template terms")
-    if SPREAD_KIND in tmpl_kinds:
-        raise ValueError("scan_chunk: spread is not template-factored")
+    kinds, weights, aux = _kinds(tuple(terms), "dynamic priority terms")
+    tmpl_kinds, tmpl_weights, _ = _kinds(tuple(tmpl_terms), "template terms")
+    if {SPREAD_KIND, INTERPOD_KIND, SERVICE_ANTI_KIND} & set(tmpl_kinds):
+        raise ValueError("scan_chunk: only resource priorities are "
+                         "template-factored")
     t = s = z = 0
     if d_plane is not None:
         if templates is None or tmpl_idx is None:
@@ -194,6 +488,8 @@ def scan_chunk(enc: torch.Tensor, *, request: torch.Tensor,
         args["has_zones"] = _check("has_zones", has_zones, torch.bool, (s,))
         args["sp_zone"] = _check("sp_zone", sp_zone, f32, (s, z))
         args["sp_maxz"] = _check("sp_maxz", sp_maxz, f32, (s,))
+    r_tensors, r_lists, r_pds, r_ints = _rich_args(p, n, kinds, aux, rich)
+    is_rich = bool(r_tensors or r_lists or r_pds)
 
     dev = enc.device
     if dev.type != "cuda":
@@ -202,7 +498,16 @@ def scan_chunk(enc: torch.Tensor, *, request: torch.Tensor,
     if dev.index != torch.cuda.current_device():
         raise ValueError("scan_chunk: tensors must lie on the current CUDA "
                          "device")
-    for name, tensor in args.items():
+    every = dict(args)
+    every.update(r_tensors)
+    for name, pair in r_lists.items():
+        every[f"{name} offsets"], every[f"{name} entries"] = pair
+    for fam, fields in r_pds.items():
+        for key, val in fields.items():
+            if isinstance(val, torch.Tensor):
+                every[f"{fam} {key}"] = val
+        every[f"{fam} offsets"], every[f"{fam} entries"] = fields["pod"]
+    for name, tensor in every.items():
         if tensor.device != dev:
             raise ValueError(f"scan_chunk: {name} is on {tensor.device}, "
                              f"enc on {dev}")
@@ -221,9 +526,26 @@ def scan_chunk(enc: torch.Tensor, *, request: torch.Tensor,
     c.n_terms, c.n_tmpl_terms = len(kinds), len(tmpl_kinds)
     c.term_kind[:len(kinds)] = kinds
     c.term_w[:len(weights)] = weights
+    c.term_aux[:len(aux)] = aux
     c.tmpl_kind[:len(tmpl_kinds)] = tmpl_kinds
     c.tmpl_w[:len(tmpl_weights)] = tmpl_weights
-    err = library().kt_scan_chunk(
+    c.rich = int(is_rich)
+    for name, tensor in r_tensors.items():
+        setattr(c.r, name, tensor.data_ptr())
+    for name, (off, idx) in r_lists.items():
+        setattr(c.r, name, _TermList(off.data_ptr(), idx.data_ptr()))
+    for fam, fields in r_pds.items():
+        pd = getattr(c.r, fam)
+        for key, val in fields.items():
+            if key == "pod":
+                pd.pod = _TermList(val[0].data_ptr(), val[1].data_ptr())
+            elif isinstance(val, torch.Tensor):
+                setattr(pd, key, val.data_ptr())
+            else:
+                setattr(pd, key, val)
+    for name, val in r_ints.items():
+        setattr(c.r, name, val)
+    err = _library().kt_scan_chunk(
         ctypes.byref(c),
         ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
     if err != 0:

@@ -12,15 +12,17 @@ streamed sequential-greedy drain:
     placement-invariant [P, N] mask and score planes are hoisted out of
     the step loop; each step does O(N) work on one row.
 
-On the card a chunk whose families are all ``mixed`` (resources, the
-resource priorities, spread with or without zones) runs as ONE launch of
-the scan kernel (``engine/scan.py``, ``csrc/scan.cu``).  Any other chunk,
-and every chunk on the CPU, runs the step loop: a Python loop over torch
-ops with all state on the device, which is also the kernel's plain
-version.  No step reads a device value on the host (no ``.item()``,
-``int()`` or ``bool()`` of a device tensor), so a chunk of steps is
-enqueued without a host round trip and read back once.  The fused select
-of every step is the CUDA kernel of ``engine/fused.py``.
+On the card every chunk runs as ONE launch of the scan kernel
+(``engine/scan.py``, ``csrc/scan.cu``): the ``mixed`` families
+(resources, the resource priorities, spread with or without zones) and
+the ``rich`` ones (host ports, volumes, the disk counts, inter-pod
+affinity, service anti-affinity).  Every chunk on the CPU runs the step
+loop: a Python loop over torch ops with all state on the device, which
+is also the kernel's plain version.  No step reads a device value on
+the host (no ``.item()``, ``int()`` or ``bool()`` of a device tensor),
+so a chunk of steps is enqueued without a host round trip and read back
+once.  On CUDA tensors (``route="steps"``) the step loop's select is the
+CUDA kernel of ``engine/fused.py``.
 
 ``evaluate`` / ``masks``
     The one-shot [P, N] feasibility and weighted-score planes (and the
@@ -495,13 +497,11 @@ def _priority_plane(name: str, b: DeviceBatch, c: DeviceCluster,
     raise KeyError(f"unknown priority {name!r}")
 
 
-def scan_route(device: torch.device, fams: dict) -> str:
+def scan_route(device: torch.device) -> str:
     """Which body runs a chunk: ``"kernel"`` (one launch of the scan
-    kernel) for CUDA tensors whose families the kernel carries, else
-    ``"steps"`` (the step loop; for CUDA tensors with its select kernel
-    per step)."""
-    return "kernel" if device.type == "cuda" and scan_mod.takes(fams) \
-        else "steps"
+    kernel, which carries every family) for CUDA tensors, else
+    ``"steps"`` (the step loop)."""
+    return "kernel" if device.type == "cuda" else "steps"
 
 
 def _add_weighted(acc: torch.Tensor, weight: float,
@@ -747,7 +747,7 @@ class Solver:
         batch's own order, counter [1] int64, the cluster after the
         placements).  Placements honor EVERY predicate: the repair pass
         is the exact sequential scan (``_solve_scan``, on the card one
-        scan-kernel launch for a ``mixed`` batch), price-shaped through
+        scan-kernel launch), price-shaped through
         its f32 score bias and reordered, plus the workload-constraint
         ``extra_mask``/``score_bias`` planes.  ``live`` marks real rows
         when the caller padded the batch.  ``flags`` come from the host
@@ -893,6 +893,57 @@ class Solver:
                                         templates, nz_j, alloc_j))
         return col
 
+    def _rich_kernel_args(self, b: DeviceBatch, c: DeviceCluster,
+                          state: dict, fams: dict, other_prios: tuple
+                          ) -> dict:
+        """The rich families' arguments of ``scan_chunk``: the chunk's
+        per-pod term lists (built here, on the device, as part of the
+        hoist), the batch's tables and the carried state."""
+        lists = scan_mod.term_lists
+        a, vs = b.aff, b.volsvc
+        kw = {}
+        if fams["use_ports"]:
+            kw.update(ports_list=lists(b.ports),
+                      ports_used=state["ports_used"])
+        if fams["use_volumes"]:
+            kw.update(vol_rw_list=lists(b.vol_rw),
+                      vol_ro_list=lists(b.vol_ro), vol_any=state["vol_any"],
+                      vol_rw=state["vol_rw"])
+        for fam in ("ebs", "gce"):
+            if fams[f"use_max_{fam}"]:
+                pd = state[f"pd_{fam}"]
+                kw.update({
+                    f"{fam}_list": lists(getattr(vs, f"pd_pod_{fam}")),
+                    f"{fam}_extra": getattr(vs, f"pd_extra_{fam}"),
+                    f"{fam}_node_extra": getattr(vs, f"pd_node_extra_{fam}"),
+                    f"{fam}_node_err": getattr(vs, f"pd_node_err_{fam}"),
+                    f"pd_{fam}": pd,
+                    f"{fam}_count": pd.sum(dim=1, dtype=torch.int32),
+                    f"max_{fam}": self.extra[f"max_{fam}"]})
+        if fams["track_affinity"]:
+            kw.update(node_dom=a.node_dom, match_key=a.match_key,
+                      decl_key=a.decl_key, sym_key=a.sym_key,
+                      match_cnt=state["match_cnt"],
+                      match_total=state["match_total"],
+                      decl_reach=state["decl_reach"],
+                      sym_cnt=state["sym_cnt"],
+                      match_src_list=lists(a.match_src),
+                      decl_src_list=lists(a.decl_src),
+                      sym_src_list=lists(a.sym_src))
+        if fams["use_interpod"]:
+            kw.update(aff_need_list=lists(a.aff_need), aff_self=a.aff_self,
+                      anti_need_list=lists(a.anti_need),
+                      decl_match_list=lists(a.decl_match))
+        if any(nm == "InterPodAffinityPriority" for nm, _, _ in other_prios):
+            kw.update(pref_list=lists(a.pref_w != 0), pref_w=a.pref_w,
+                      sym_match_list=lists(a.sym_match), sym_w=a.sym_w,
+                      schedulable=c.schedulable)
+        if fams["track_saa"]:
+            kw.update(saa_group=vs.saa_group, saa_src_list=lists(vs.saa_src),
+                      saa_dom=vs.saa_dom, saa_labeled=vs.saa_labeled,
+                      saa_cnt=state["saa_cnt"], saa_num=state["saa_num"])
+        return kw
+
     def _fused_scan(self, b: DeviceBatch, c: DeviceCluster,
                     last_node_index: torch.Tensor,
                     static_mask: torch.Tensor, static_score: torch.Tensor,
@@ -921,10 +972,7 @@ class Solver:
         ``engine/scan.py:scan_chunk`` on the same encoded plane and the
         same state."""
         dev = c.alloc.device
-        route = route or scan_route(dev, fams)
-        if route == "kernel" and not scan_mod.takes(fams):
-            rich = [f for f in scan_mod.RICH_FAMILIES if fams[f]]
-            raise ValueError(f"the scan kernel does not carry {rich}")
+        route = route or scan_route(dev)
         n = c.alloc.shape[0]
         p = b.request.shape[0]
         a = b.aff
@@ -1017,14 +1065,16 @@ class Solver:
             incr_f = b.spread_incr.to(f32)
             node_has_zone = zone_ids >= 0
             zone_clip = torch.clamp(zone_ids, min=0).to(i64)
+        # Copies: the kernel updates its state in place, and the batch's
+        # tables must stay as compiled.
         if track_affinity:
-            state["match_cnt"] = init("match_cnt", lambda: a.match_cnt)
-            state["match_total"] = init("match_total", lambda: a.match_total)
-            state["decl_reach"] = init("decl_reach", lambda: a.decl_reach)
-            state["sym_cnt"] = init("sym_cnt", lambda: a.sym_cnt)
+            state["match_cnt"] = init("match_cnt", a.match_cnt.clone)
+            state["match_total"] = init("match_total", a.match_total.clone)
+            state["decl_reach"] = init("decl_reach", a.decl_reach.clone)
+            state["sym_cnt"] = init("sym_cnt", a.sym_cnt.clone)
         if track_saa:
-            state["saa_cnt"] = init("saa_cnt", lambda: vs.saa_cnt)
-            state["saa_num"] = init("saa_num", lambda: vs.saa_num)
+            state["saa_cnt"] = init("saa_cnt", vs.saa_cnt.clone)
+            state["saa_num"] = init("saa_num", vs.saa_num.clone)
             saa_g = vs.saa_group.to(i64)
             n_dom = state["saa_cnt"].shape[2]
             dom_ids = torch.arange(n_dom, dtype=i32, device=dev)
@@ -1046,6 +1096,7 @@ class Solver:
             if track_spread_zones:
                 kw.update(node_zone=zone_ids, has_zones=b.spread_has_zones,
                           sp_zone=state["sp_zone"], sp_maxz=state["sp_maxz"])
+            kw.update(self._rich_kernel_args(b, c, state, fams, other_prios))
             choices = scan_mod.scan_chunk(
                 enc, request=b.request, nonzero=b.nonzero,
                 zero_request=b.zero_request, alloc=c.alloc, packed=packed,

@@ -4,8 +4,9 @@
 The quadratic (pods x pods via topology) computation of
 ``predicates.go:825-1068`` and ``interpod_affinity.go:117-260`` is three
 [P,S] @ [S,N] contractions over the sig tables built by
-``features/affinity.py``.  The contractions are float32 matmuls of small
-integer counts and weights, so they are exact.
+``features/affinity.py``.  The predicate's contractions are float32
+matmuls of 0/1 incidences, exact at any matmul precision; the priority's
+weighted counts are summed in float64 (``priority_counts``).
 """
 
 from __future__ import annotations
@@ -59,10 +60,17 @@ def priority_counts(pref_w: torch.Tensor, match_cnt: torch.Tensor,
                     sym_cnt: torch.Tensor) -> torch.Tensor:
     """CalculateInterPodAffinityPriority's raw counts
     (interpod_affinity.go:148-196): the candidate's preferred +-w terms
-    against matching existing pods, plus the symmetric part."""
-    own = pref_w @ match_cnt
-    sym = (sym_match.float() * sym_w[None, :]) @ sym_cnt
-    return own + sym
+    against matching existing pods, plus the symmetric part.
+
+    Every operand is a whole number, so the sums are taken in float64,
+    exact below 2^53 in any order, and rounded to f32 once: an f32
+    product would round a count past 2,048 under TF32 matmul precision,
+    and past 2^24 in an order of its own; the scan kernel sums the same
+    terms in f64 and rounds once too."""
+    f64 = torch.float64
+    own = pref_w.to(f64) @ match_cnt.to(f64)
+    sym = (sym_match.to(f64) * sym_w.to(f64)[None, :]) @ sym_cnt.to(f64)
+    return (own + sym).float()
 
 
 def priority_score(counts: torch.Tensor, schedulable: torch.Tensor,

@@ -165,8 +165,11 @@ _MAX_IMG_KIB = 1000 * 1024
 def image_locality(pod_images: torch.Tensor,
                    node_image_kib: torch.Tensor) -> torch.Tensor:
     """ImageLocalityPriority (priorities.go:205-263): sum the sizes of
-    the pod's images already on the node, bucketed into 0-10."""
-    sums = (pod_images.float() @ node_image_kib.float().T).to(torch.int32)
+    the pod's images already on the node, bucketed into 0-10.  The KiB
+    sums are taken in float64, exact at any matmul precision (TF32 would
+    round a 123,597 KiB image to 123,584, a bucket lower)."""
+    sums = (pod_images.double() @ node_image_kib.double().T) \
+        .to(torch.int32)
     clamped = torch.clamp(sums, max=_MAX_IMG_KIB)
     mid = (10 * (clamped - _MIN_IMG_KIB)) // \
         (_MAX_IMG_KIB - _MIN_IMG_KIB) + 1

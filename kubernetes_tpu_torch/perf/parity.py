@@ -39,6 +39,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import multiprocessing
 import os
 import subprocess
 import time
@@ -128,11 +129,84 @@ def run_parity(n_nodes: int, n_pods: int, seed: int = 0,
     t0 = time.perf_counter()
     placements = eng.schedule_batch(pods)
     drain_s = time.perf_counter() - t0
+    rec = judge(nodes, pods, services, placements, seed=seed,
+                n_samples=n_samples, saa_label=saa_label)
+    rec.update(n_nodes=n_nodes, profile=profile, drain_s=round(drain_s, 3))
+    return rec
 
-    cluster = IndexedClusterState(nodes=nodes, services=services)
+
+def judge(nodes: list, pods: list, services: list, placements: list,
+          seed: int = 0, n_samples: int = 200, saa_label: str = "",
+          workers: int = 1) -> dict:
+    """Replay ``placements`` (one node name or None per pod, in order)
+    through the oracle, judging about ``n_samples`` decisions drawn from
+    ``seed``: each against the oracle's feasible set and best score on
+    the cluster as the earlier placements left it.  The replay stops
+    after the last sampled decision.  With ``workers`` = 1 it runs here
+    and marks each pod it replays bound (``pod.node_name``); with more,
+    each of that many worker processes (spawned, given the inputs as
+    arguments) replays the placements up to its share of the sampled
+    decisions and judges that share (the judgments do not depend on one
+    another).  Returns the agreement record."""
+    n_pods = len(pods)
     rng = np.random.RandomState(seed + 17)
-    sampled = set(rng.choice(n_pods, size=min(n_samples, n_pods),
-                             replace=False).tolist())
+    sampled = sorted(rng.choice(n_pods, size=min(n_samples, n_pods),
+                                replace=False).tolist())
+    args = (nodes, pods, services, placements, saa_label)
+    t1 = time.perf_counter()
+    if workers <= 1:
+        parts = [_judge_part(args, set(sampled))]
+    else:
+        with multiprocessing.get_context("spawn").Pool(workers) as pool:
+            parts = pool.starmap(_judge_part, [
+                (args, set(sampled[w::workers])) for w in range(workers)])
+    replay_s = time.perf_counter() - t1
+    tot = {k: sum(part[k] for part in parts)
+           for k in ("agree", "disagree", "none_agree", "none_disagree",
+                     "infeasible", "saa_flips")}
+    score_gaps = [g for part in parts for g in part["score_gaps"]]
+    saa_drifts = [d for part in parts for d in part["saa_drifts"]]
+    examples = [ex for _, ex in sorted(
+        (item for part in parts for item in part["examples"]),
+        key=lambda item: item[0])][:10]
+
+    judged = tot["agree"] + tot["disagree"] + tot["none_agree"] + \
+        tot["none_disagree"]
+    placed = sum(1 for d in placements if d is not None)
+    rec = {
+        "n_nodes": len(nodes), "n_pods": n_pods, "seed": seed,
+        "placed": placed,
+        "sampled_decisions": judged,
+        "decision_agreement_pct": round(
+            100.0 * (tot["agree"] + tot["none_agree"]) / max(judged, 1), 3),
+        "agree": tot["agree"], "disagree": tot["disagree"],
+        "unschedulable_agree": tot["none_agree"],
+        "unschedulable_disagree": tot["none_disagree"],
+        "infeasible_choices": tot["infeasible"],
+        "max_score_gap": max(score_gaps) if score_gaps else 0,
+        "replay_s": round(replay_s, 1),
+        "examples": examples,
+    }
+    if saa_label:
+        rec["service_anti_affinity"] = {
+            "label": saa_label,
+            "scoring": "live in-batch peer counts (scan-carried)",
+            "max_score_drift_vs_batch_start": max(saa_drifts)
+            if saa_drifts else 0,
+            "mean_score_drift_vs_batch_start": round(
+                float(np.mean(saa_drifts)), 3) if saa_drifts else 0.0,
+            "stale_scoring_would_flip": tot["saa_flips"],
+            "samples": len(saa_drifts),
+        }
+    return rec
+
+
+def _judge_part(args: tuple, sampled: set) -> dict:
+    """Replay the placements up to the last decision in ``sampled``,
+    judging those decisions."""
+    nodes, pods, services, placements, saa_label = args
+    cluster = IndexedClusterState(nodes=nodes, services=services)
+    last = max(sampled, default=-1)
 
     # Batch-start ServiceAntiAffinity scores per service signature (the
     # engine's static view) for the drift bound.
@@ -144,33 +218,32 @@ def run_parity(n_nodes: int, n_pods: int, seed: int = 0,
                 saa_start[sig] = oracle.service_anti_affinity(
                     pod, cluster, saa_label)
 
-    agreements = disagreements = 0
-    none_agree = none_disagree = 0
-    infeasible_choice = 0
-    score_gaps: list[int] = []
-    saa_drifts: list[int] = []
-    saa_flips = 0
-    examples: list[dict] = []
-
-    t1 = time.perf_counter()
+    out = {"agree": 0, "disagree": 0, "none_agree": 0, "none_disagree": 0,
+           "infeasible": 0, "saa_flips": 0, "score_gaps": [],
+           "saa_drifts": [], "examples": []}
+    examples = out["examples"]
     for i, (pod, dest) in enumerate(zip(pods, placements)):
+        if i > last:
+            break
         if i in sampled:
             fits, _ = oracle.find_nodes_that_fit(pod, cluster)
             onames = {n.name for n in fits}
             if dest is None:
                 if onames:
-                    none_disagree += 1
+                    out["none_disagree"] += 1
                     if len(examples) < 10:
-                        examples.append({"pod": pod.name, "kind": "engine-none",
-                                         "oracle_feasible": len(onames)})
+                        examples.append((i, {
+                            "pod": pod.name, "kind": "engine-none",
+                            "oracle_feasible": len(onames)}))
                 else:
-                    none_agree += 1
+                    out["none_agree"] += 1
             elif dest not in onames:
-                infeasible_choice += 1
-                disagreements += 1
+                out["infeasible"] += 1
+                out["disagree"] += 1
                 if len(examples) < 10:
-                    examples.append({"pod": pod.name, "kind": "infeasible",
-                                     "choice": dest})
+                    examples.append((i, {"pod": pod.name,
+                                         "kind": "infeasible",
+                                         "choice": dest}))
             else:
                 scores = oracle.prioritize(pod, cluster)
                 if saa_label:
@@ -185,7 +258,7 @@ def run_parity(n_nodes: int, n_pods: int, seed: int = 0,
                                                         saa_label)
                     start = saa_start[_first_service_sig(pod, services)]
                     drift = max(abs(live[nm] - start[nm]) for nm in onames)
-                    saa_drifts.append(drift)
+                    out["saa_drifts"].append(drift)
                     stale_view = {nm: scores[nm] + start[nm] for nm in onames}
                     live_view = {nm: scores[nm] + live[nm] for nm in onames}
                     live_best = {nm for nm in onames
@@ -195,53 +268,24 @@ def run_parity(n_nodes: int, n_pods: int, seed: int = 0,
                                   if stale_view[nm] == max(stale_view[nm2]
                                                            for nm2 in onames)}
                     if not (stale_best & live_best):
-                        saa_flips += 1
+                        out["saa_flips"] += 1
                     scores = live_view
                 best = max(scores[nm] for nm in onames)
                 if scores[dest] == best:
-                    agreements += 1
+                    out["agree"] += 1
                 else:
-                    disagreements += 1
-                    score_gaps.append(int(best - scores[dest]))
+                    out["disagree"] += 1
+                    out["score_gaps"].append(int(best - scores[dest]))
                     if len(examples) < 10:
-                        examples.append({
+                        examples.append((i, {
                             "pod": pod.name, "kind": "suboptimal",
                             "choice": dest,
                             "choice_score": int(scores[dest]),
-                            "best_score": int(best)})
+                            "best_score": int(best)}))
         if dest is not None:
             pod.node_name = dest
             cluster.add_pod(pod)
-    replay_s = time.perf_counter() - t1
-
-    judged = agreements + disagreements + none_agree + none_disagree
-    placed = sum(1 for d in placements if d is not None)
-    rec = {
-        "n_nodes": n_nodes, "n_pods": n_pods, "seed": seed,
-        "profile": profile, "placed": placed,
-        "sampled_decisions": judged,
-        "decision_agreement_pct": round(
-            100.0 * (agreements + none_agree) / max(judged, 1), 3),
-        "agree": agreements, "disagree": disagreements,
-        "unschedulable_agree": none_agree,
-        "unschedulable_disagree": none_disagree,
-        "infeasible_choices": infeasible_choice,
-        "max_score_gap": max(score_gaps) if score_gaps else 0,
-        "drain_s": round(drain_s, 3), "replay_s": round(replay_s, 1),
-        "examples": examples,
-    }
-    if saa_label:
-        rec["service_anti_affinity"] = {
-            "label": saa_label,
-            "scoring": "live in-batch peer counts (scan-carried)",
-            "max_score_drift_vs_batch_start": max(saa_drifts)
-            if saa_drifts else 0,
-            "mean_score_drift_vs_batch_start": round(
-                float(np.mean(saa_drifts)), 3) if saa_drifts else 0.0,
-            "stale_scoring_would_flip": saa_flips,
-            "samples": len(saa_drifts),
-        }
-    return rec
+    return out
 
 
 def _first_service_sig(pod: api.Pod, services) -> tuple:

@@ -122,6 +122,9 @@ def recorded_args(enc, kw: dict) -> tuple[bytes, torch.Tensor]:
             seen["args"] = bytes(args._obj)
             return 0
 
+        def kt_scan_args_size(self):
+            return ctypes.sizeof(scan_mod._ScanArgs)
+
     library = scan_mod.library
     scan_mod.library = _Record
     try:

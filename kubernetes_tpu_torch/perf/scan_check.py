@@ -6,30 +6,51 @@ twice from the same inputs — once with ``route="steps"`` (the step loop)
 and once with ``route="kernel"`` (``engine/scan.py:scan_chunk``), in two
 chunks so the second continues the first's carried state — and requires
 exact equality of the choices, the counter and every carried state
-tensor (floats compared bit for bit) after each chunk.
+tensor (floats compared bit for bit) after each chunk: ``packed``, ``D``
+and the spread planes, and for the rich families ``ports_used``,
+``vol_any``, ``vol_rw``, ``pd_ebs``, ``pd_gce``, ``match_cnt``,
+``match_total``, ``decl_reach``, ``sym_cnt``, ``saa_cnt`` and
+``saa_num``.
 
-The cases cover what the kernel must get right: node counts around its
-thread and warp boundaries (1, 31, 1,023, 1,025, 5,000, 16,384), an
-all-infeasible chunk, round-robin counters at 0, 2^31, 2^32 - 1 (wraps on
-the first placement) and 2^32, an f16 encoded plane, MostRequested and
-non-unit weights, templates over their cap (in-step resource scores),
-a policy with neither spread nor PodFitsResources, node 0 unschedulable
-under unplaceable pods (the spread maxima must not fold column 0),
-identical nodes whose ties straddle lanes, rounds and warps, and the
-f32 route the joint repair and topology spread take: a non-integral
-score bias (which keeps even the f16 policy's plane at f32), and an
-extra mask that leaves whole rows infeasible.
+The ``mixed`` cases cover what the kernel must get right: node counts
+around its thread and warp boundaries (1, 31, 1,023, 1,025, 5,000,
+16,384), an all-infeasible chunk, round-robin counters at 0, 2^31,
+2^32 - 1 (wraps on the first placement) and 2^32, an f16 encoded plane,
+MostRequested and non-unit weights, templates over their cap (in-step
+resource scores), a policy with neither spread nor PodFitsResources,
+node 0 unschedulable under unplaceable pods (the spread maxima must not
+fold column 0), identical nodes whose ties straddle lanes, rounds and
+warps, and the f32 route the joint repair and topology spread take: a
+non-integral score bias (which keeps even the f16 policy's plane at
+f32), and an extra mask that leaves whole rows infeasible.
+
+The ``rich`` cases (``rig_spec``: a ``mixed`` cluster whose existing and
+pending pods carry one family's features, under the default policy cut
+so that only that family is on) cover each family alone: host ports
+drawn from three ports; GCE disks mounted read-write and read-only
+(NoDiskConflict); EBS and GCE disks, missing and unbound claims under
+maxima of 3 and 4; required anti-affinity by hostname (and by the
+default keys, an empty topologyKey); required affinity by zone with the
+self-match escape, and to pods nobody runs; preferred affinity and
+anti-affinity with their symmetric terms; two service anti-affinity
+priorities (zone, pool).  Then every family at once at N = 1, 1,025,
+5,000 and 16,384, with the counter at 2^32 - 1, with an f16 plane and
+with a non-integral bias; disks at their maxima; an anti-affinity group
+larger than the cluster (unplaced steps that carry affinity state); and
+the first 512 pods of the ``rich`` north-star rig.
 """
 
 from __future__ import annotations
 
 import functools
-from dataclasses import dataclass
+import json
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
 
 from kubernetes_tpu_torch.api import policy as pol
+from kubernetes_tpu_torch.api import types as api
 from kubernetes_tpu_torch.cache.scheduler_cache import SchedulerCache
 from kubernetes_tpu_torch.engine import scan as scan_mod
 from kubernetes_tpu_torch.engine import solver as sv
@@ -117,6 +138,182 @@ def _node0_unschedulable(device) -> tuple:
     return sched, pods
 
 
+# -- the rich families -------------------------------------------------------
+
+HOST_PORTS = (30080, 30443, 31000)
+
+
+@dataclass
+class RigSpec:
+    """A cluster and its pending pods, as API objects (so a test can hand
+    the same rig to another scheduler through the JSON codec)."""
+
+    nodes: list
+    existing: list
+    pods: list
+    services: list
+    policy: pol.Policy
+    pvcs: list = field(default_factory=list)
+
+
+def _with_pod_affinity(pod, kind: str, section: str, terms: list) -> None:
+    """Add ``terms`` to the pod's affinity annotation under ``kind``
+    (podAffinity / podAntiAffinity) and ``section`` (required / preferred),
+    keeping what the annotation holds."""
+    raw = pod.annotations.get(api.AFFINITY_ANNOTATION_KEY)
+    aff = json.loads(raw) if raw else {}
+    key = ("requiredDuringSchedulingIgnoredDuringExecution"
+           if section == "required" else
+           "preferredDuringSchedulingIgnoredDuringExecution")
+    aff.setdefault(kind, {}).setdefault(key, []).extend(terms)
+    pod.annotations[api.AFFINITY_ANNOTATION_KEY] = json.dumps(aff)
+
+
+def _term(labels: dict, key: str) -> dict:
+    return {"labelSelector": {"matchLabels": labels}, "topologyKey": key}
+
+
+def _policy_for(family: str) -> pol.Policy:
+    """The default policy, cut so that only ``family``'s scan families
+    are on; ``all`` keeps every predicate, with small disk maxima and two
+    service anti-affinity priorities; ``all, f16`` drops the avoid-pods
+    term besides (a half-width encoded plane)."""
+    p = pol.default_provider()
+    preds = list(p.predicates)
+
+    def drop(*names):
+        return [s for s in preds if s.name not in names]
+
+    def disk_maxima(specs):
+        return [pol.PredicateSpec(s.name, max_volumes=3)
+                if s.name == "MaxEBSVolumeCount" else
+                pol.PredicateSpec(s.name, max_volumes=4)
+                if s.name == "MaxGCEPDVolumeCount" else s for s in specs]
+
+    if family == "volumes":
+        preds = drop("MaxEBSVolumeCount", "MaxGCEPDVolumeCount")
+    elif family == "disk counts":
+        preds = disk_maxima(drop("NoDiskConflict", "NoVolumeZoneConflict"))
+    elif family == "service anti-affinity" or family.startswith("all"):
+        p.priorities = list(p.priorities) + [
+            pol.PrioritySpec("ServiceAntiAffinityPriority", 2,
+                             anti_affinity_label=api.ZONE_LABEL),
+            pol.PrioritySpec("ServiceAntiAffinityPriority", 1,
+                             anti_affinity_label="kt/pool")]
+        if family.startswith("all"):
+            preds = disk_maxima(preds)
+        if family == "all, f16":
+            p.priorities = [s for s in p.priorities
+                            if s.name != "NodePreferAvoidPodsPriority"]
+    p.predicates = preds
+    return p
+
+
+def _add_family(family: str, pods: list, rng, prefix: str) -> None:
+    """Give ``pods`` (existing or pending) the features of ``family``."""
+    zone, host = api.ZONE_LABEL, api.HOSTNAME_LABEL
+    for i, pod in enumerate(pods):
+        r = rng.rand()
+        if family == "host ports" and r < 0.5:
+            pod.containers[0].ports = [api.ContainerPort(
+                container_port=8080,
+                host_port=int(HOST_PORTS[rng.randint(3)]))]
+        elif family == "volumes" and r < 0.5:
+            pod.volumes = [api.Volume(
+                name=f"v{k}", gce_pd_name=f"pd-{rng.randint(8)}",
+                gce_read_only=bool(rng.rand() < 0.6))
+                for k in range(1 + rng.randint(2))]
+        elif family == "disk counts" and r < 0.6:
+            vols = [api.Volume(name=f"e{k}",
+                               aws_ebs_id=f"vol-{rng.randint(12)}",
+                               aws_read_only=bool(rng.rand() < 0.5))
+                    for k in range(rng.randint(3))]
+            vols += [api.Volume(name=f"g{k}",
+                                gce_pd_name=f"pd-{rng.randint(10)}")
+                     for k in range(rng.randint(3))]
+            if rng.rand() < 0.1:
+                # A claim no lister knows: one un-dedupable volume.
+                vols.append(api.Volume(name="c", pvc_claim_name="missing"))
+            if prefix == "old" and rng.rand() < 0.05:
+                vols.append(api.Volume(name="u", pvc_claim_name="unbound"))
+            pod.volumes = vols
+        elif family == "anti-affinity by hostname" and r < 0.4:
+            g = f"{prefix}-g{i // 4}"
+            pod.labels["kt/aa"] = g
+            _with_pod_affinity(pod, "podAntiAffinity", "required", [_term(
+                {"kt/aa": g}, host if rng.rand() < 0.8 else "")])
+        elif family == "affinity with the self-match escape" and r < 0.4:
+            # Co-locate by zone with pods like itself; the first of a
+            # group goes anywhere (it matches its own term).
+            g = f"{prefix}-a{rng.randint(6)}"
+            pod.labels["kt/af"] = g
+            _with_pod_affinity(pod, "podAffinity", "required",
+                               [_term({"kt/af": g}, zone)])
+        elif family == "affinity with the self-match escape" and r < 0.45:
+            # Affinity to pods nobody runs: unplaceable.
+            _with_pod_affinity(pod, "podAffinity", "required",
+                               [_term({"kt/af": "nobody"}, zone)])
+        elif family == "soft affinity, symmetric" and r < 0.5:
+            svc = f"svc-{rng.randint(4)}"
+            _with_pod_affinity(pod, "podAffinity", "preferred", [{
+                "weight": int(rng.randint(1, 10)),
+                "podAffinityTerm": _term({"app": svc}, zone)}])
+            if rng.rand() < 0.5:
+                _with_pod_affinity(pod, "podAntiAffinity", "preferred", [{
+                    "weight": int(rng.randint(1, 10)),
+                    "podAffinityTerm": _term(
+                        {"app": f"svc-{rng.randint(4)}"},
+                        host if rng.rand() < 0.7 else "")}])
+
+
+FAMILIES = ("host ports", "volumes", "disk counts",
+            "anti-affinity by hostname",
+            "affinity with the self-match escape",
+            "soft affinity, symmetric", "service anti-affinity")
+
+
+def rig_spec(family: str, n_nodes: int, n_pods: int,
+             n_existing: int | None = None, seed: int = 0) -> RigSpec:
+    """``family`` (one of :data:`FAMILIES`, or ``all`` / ``all, f16`` for
+    every family at once) on a ``mixed`` cluster of ``n_nodes`` in 4
+    zones, with ``n_existing`` pods (default: one per node) bound round
+    robin by a stride and ``n_pods`` pending ones."""
+    families = FAMILIES if family.startswith("all") else (family,)
+    nodes = synth.make_nodes(n_nodes, seed=seed, profile="mixed", n_zones=4)
+    n_old = n_nodes if n_existing is None else n_existing
+    existing = synth.make_pods(n_old, seed=seed + 7, profile="mixed",
+                               n_services=4, name_prefix="old")
+    pods = synth.make_pods(n_pods, seed=seed + 1, profile="mixed",
+                           n_services=4)
+    rng = np.random.RandomState(seed + 11)
+    for fam in families:
+        _add_family(fam, existing, rng, "old")
+        _add_family(fam, pods, rng, "pod")
+    for k, pod in enumerate(existing):
+        pod.node_name = nodes[(k * 7) % n_nodes].name
+    return RigSpec(nodes, existing, pods, synth.make_services(4),
+                   _policy_for(family),
+                   [api.PersistentVolumeClaim(name="unbound")])
+
+
+def build(spec: RigSpec, device) -> tuple:
+    """(scheduler on ``device``, pending pods) of a :class:`RigSpec`."""
+    cache = SchedulerCache()
+    for nd in spec.nodes:
+        cache.add_node(nd)
+    for pod in spec.existing:
+        cache.add_pod(pod)
+    sched = GenericScheduler(
+        policy=spec.policy, cache=cache,
+        listers=Listers(services=spec.services, pvcs=list(spec.pvcs)),
+        device=device)
+    return sched, spec.pods
+
+
+def _family_rig(family: str, n_nodes: int, n_pods: int, **kw):
+    return lambda d: build(rig_spec(family, n_nodes, n_pods, **kw), d)
+
+
 def _cases() -> dict:
     """Case name -> factory(device)."""
     out = {}
@@ -142,6 +339,19 @@ def _cases() -> dict:
     out["non-integral bias, N=5000"] = lambda d: _rig(d, 5000, 512)
     out["extra mask with all-false rows, bias"] = \
         lambda d: _rig(d, 1025, 256)
+    for fam in FAMILIES:
+        out[f"rich: {fam}"] = _family_rig(fam, 1025, 256)
+    for n, p in ((1, 64), (1025, 256), (5000, 512), (16384, 64)):
+        out[f"rich: all, N={n}"] = _family_rig("all", n, p)
+    out["rich: all, counter 4294967295"] = _family_rig("all", 1023, 128)
+    out["rich: all, f16 plane"] = _family_rig("all, f16", 1025, 256)
+    out["rich: disk counts at their maxima"] = \
+        _family_rig("disk counts", 64, 512, n_existing=128)
+    out["rich: anti-affinity leaves pods no node"] = \
+        _family_rig("anti-affinity by hostname", 16, 256, n_existing=8)
+    out["rich: all, non-integral bias"] = _family_rig("all", 1025, 256)
+    out["rich: all, the rich north-star rig"] = \
+        lambda d: _rig(d, 5000, 512, profile="rich")
     return out
 
 
@@ -154,8 +364,8 @@ def case(name: str, device) -> Case:
     extra = {}
     if name == "all infeasible":
         extra["infeasible"] = True
-    elif name.startswith("counter "):
-        extra["counter"] = int(name.split()[1])
+    elif "counter " in name:
+        extra["counter"] = int(name.split("counter ")[1])
     elif name.startswith("templates over the cap"):
         extra["template_cap"] = 2
     if "bias" in name:
@@ -222,7 +432,7 @@ def run_routes(case: Case, routes: tuple = ("steps", "kernel"),
     raise :class:`ScanMismatch` unless every route agrees with the first
     exactly after every chunk.  Returns {"steps": scan steps per route,
     "max_abs_err": largest difference seen (0.0 when they agree),
-    "placed": placements}."""
+    "placed": placements, "axes": the batch's term axes}."""
     db, dc, flags = _compile(case)
     p = len(case.pods)
     size = -(-p // chunks)
@@ -243,54 +453,85 @@ def run_routes(case: Case, routes: tuple = ("steps", "kernel"),
                 bk, dc, counter, sb, flags, carry, None, extra, route=r)
             state[r] = (counter, carry)
             got[r] = (ch, counter, carry)
-        ref_ch, ref_cnt, ref_carry = got[routes[0]]
         for r in routes[1:]:
-            ch, cnt, carry = got[r]
-            where = f"{case.name}, chunk at {start}, {r} vs {routes[0]}"
-            worst = max(worst, _max_abs(ch, ref_ch), _max_abs(cnt, ref_cnt))
-            if not torch.equal(ch, ref_ch):
-                bad = (ch != ref_ch).nonzero()[:5].flatten().tolist()
-                raise ScanMismatch(
-                    f"{where}: choices differ at rows {bad}: "
-                    f"{ch[bad].tolist()} vs {ref_ch[bad].tolist()}")
-            if not torch.equal(cnt, ref_cnt):
-                raise ScanMismatch(f"{where}: counter {cnt.tolist()} vs "
-                                   f"{ref_cnt.tolist()}")
-            if set(carry) != set(ref_carry):
-                raise ScanMismatch(f"{where}: state keys {sorted(carry)} "
-                                   f"vs {sorted(ref_carry)}")
-            for k in ref_carry:
-                a, b = carry[k], ref_carry[k]
-                if a.dtype != b.dtype or a.shape != b.shape:
-                    raise ScanMismatch(f"{where}: state {k} is {a.dtype} "
-                                       f"{tuple(a.shape)} vs {b.dtype} "
-                                       f"{tuple(b.shape)}")
-                worst = max(worst, _max_abs(a, b))
-                if not torch.equal(_bits(a), _bits(b)):
-                    diff = (_bits(a) != _bits(b)).nonzero()[:3].tolist()
-                    raise ScanMismatch(f"{where}: state {k} differs at "
-                                       f"{diff}")
-        placed += int((ref_ch >= 0).sum())
-    return {"steps": p, "max_abs_err": worst, "placed": placed}
+            worst = max(worst, compare(
+                f"{case.name}, chunk at {start}, {r} vs {routes[0]}",
+                got[r], got[routes[0]]))
+        placed += int((got[routes[0]][0] >= 0).sum())
+    return {"steps": p, "max_abs_err": worst, "placed": placed,
+            "axes": axis_sizes(db)}
 
 
-# The kernel's carried state, updated in place by each launch.
+def compare(where: str, got: tuple, ref: tuple) -> float:
+    """Raise :class:`ScanMismatch` unless ``got`` and ``ref``, each the
+    (choices, counter, carried state) of one chunk, are equal exactly
+    (floats bit for bit).  Returns the largest difference (0.0)."""
+    ch, cnt, carry = got
+    ref_ch, ref_cnt, ref_carry = ref
+    worst = max(_max_abs(ch, ref_ch), _max_abs(cnt, ref_cnt))
+    if not torch.equal(ch, ref_ch):
+        bad = (ch != ref_ch).nonzero()[:5].flatten().tolist()
+        raise ScanMismatch(
+            f"{where}: choices differ at rows {bad}: "
+            f"{ch[bad].tolist()} vs {ref_ch[bad].tolist()}")
+    if not torch.equal(cnt, ref_cnt):
+        raise ScanMismatch(f"{where}: counter {cnt.tolist()} vs "
+                           f"{ref_cnt.tolist()}")
+    if set(carry) != set(ref_carry):
+        raise ScanMismatch(f"{where}: state keys {sorted(carry)} "
+                           f"vs {sorted(ref_carry)}")
+    for k in ref_carry:
+        a, b = carry[k], ref_carry[k]
+        if a.dtype != b.dtype or a.shape != b.shape:
+            raise ScanMismatch(f"{where}: state {k} is {a.dtype} "
+                               f"{tuple(a.shape)} vs {b.dtype} "
+                               f"{tuple(b.shape)}")
+        worst = max(worst, _max_abs(a, b))
+        if not torch.equal(_bits(a), _bits(b)):
+            diff = (_bits(a) != _bits(b)).nonzero()[:3].tolist()
+            raise ScanMismatch(f"{where}: state {k} differs at {diff}")
+    return worst
+
+
+# The kernel's carried state, updated in place by each launch (with the
+# disk counts, which the wrapper's caller derives from pd_* per chunk).
 STATE = ("packed", "counter", "d_plane", "sp_node", "sp_maxn", "sp_zone",
          "sp_maxz")
+RICH_STATE = ("ports_used", "vol_any", "vol_rw", "pd_ebs", "pd_gce",
+              "ebs_count", "gce_count", "match_cnt", "match_total",
+              "decl_reach", "sym_cnt", "saa_cnt", "saa_num")
+
+
+def axis_sizes(db) -> dict:
+    """The term axes of a compiled batch: host ports, volumes, EBS and
+    GCE disks, match / decl / sym signatures, service anti-affinity rows,
+    groups and domains."""
+    a, vs = db.aff, db.volsvc
+    return {"Cp": int(db.ports.shape[1]), "W": int(db.vol_rw.shape[1]),
+            "We": int(vs.pd_pod_ebs.shape[1]),
+            "Wg": int(vs.pd_pod_gce.shape[1]),
+            "Sm": int(a.match_cnt.shape[0]), "Sd": int(a.decl_reach.shape[0]),
+            "Ss": int(a.sym_cnt.shape[0]), "L": int(vs.saa_cnt.shape[0]),
+            "Gy": int(vs.saa_cnt.shape[1]), "D": int(vs.saa_cnt.shape[2])}
 
 
 def north_star_chunk(nodes: int = 5000, pods: int = 2048,
-                     device="cuda") -> dict:
-    """The first chunk of a ``mixed`` rig as the solver hands it to the
+                     device="cuda", profile: str = "mixed",
+                     batch_pods: int | None = None) -> dict:
+    """The first chunk of a ``profile`` rig as the solver hands it to the
     kernel, for timing it alone: one launch through ``_solve_scan`` with
-    the kernel's arguments captured.  Returns {"sched", "db", "dc",
-    "flags"} (the compiled inputs), {"enc", "kw"} (the arguments) and
-    "init" (the carried state as it was before the launch, to restore
-    between timed launches)."""
-    sched, plist = synth.make_rig(nodes, pods, profile="mixed",
-                                  device=device)
+    the kernel's arguments captured.  With ``batch_pods`` the rig has
+    that many pods, compiled as one batch (as a stream compiles its
+    queue), and the chunk is its first ``pods``.  Returns {"sched",
+    "db", "dc", "flags"} (the compiled chunk), {"enc", "kw"} (the
+    arguments, the rich families' term lists included) and "init" (the
+    carried state as it was before the launch, to restore between timed
+    launches)."""
+    sched, plist = synth.make_rig(nodes, batch_pods or pods,
+                                  profile=profile, device=device)
     batch, db, dc, _ = sched._compile(plist)
     flags = sv.batch_flags(batch)
+    db = sv.slice_pod_axis(db, 0, pods)
     real = scan_mod.scan_chunk
     seen = {}
 
@@ -299,7 +540,7 @@ def north_star_chunk(nodes: int = 5000, pods: int = 2048,
     @functools.wraps(real)
     def capture(enc, **kw):
         seen["enc"], seen["kw"] = enc, kw
-        seen["init"] = {k: kw[k].clone() for k in STATE
+        seen["init"] = {k: kw[k].clone() for k in STATE + RICH_STATE
                         if kw.get(k) is not None}
         return real(enc, **kw)
 

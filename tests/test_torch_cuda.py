@@ -3,10 +3,12 @@ against its plain version, the scan kernel against its plain version (the
 step loop) on every case of ``perf/scan_check.py``, the single-pod
 select kernel (``kt_select_hosts``) against ``select_hosts_plain``, and
 drains, single-pod decisions, extender responses, the scheduler daemon
-the preemption victim solve, the topology spread planes and drain, and
-the joint solve's price iteration and placements (at f32 matmul
-precision "highest" and "high") on ``cuda`` against the same on ``cpu``,
-and a real CUDA out-of-memory error through the device guard.  They skip themselves where
+the preemption victim solve, the topology spread planes and drain, the
+joint solve's price iteration and placements, and the rich sums
+(ImageLocality, the inter-pod priority counts, ``Solver.evaluate`` and a
+rich drain) at f32 matmul precision "highest" and "high", on ``cuda``
+against the same on ``cpu``, and a real CUDA out-of-memory error
+through the device guard.  They skip themselves where
 there is no CUDA device; on the card run ``python -m pytest
 tests/test_torch_cuda.py -m cuda -q --noconftest``.  This file imports no
 JAX, so it also runs where only the port's dependencies are installed.
@@ -77,12 +79,18 @@ def test_cuda_wrapper_rejects_what_the_kernel_does_not_take(cuda):
 
 @pytest.mark.cuda
 def test_cuda_drain_matches_cpu_drain(cuda):
+    """A rich stream drain: every chunk one scan launch on the card, no
+    select launch, and the placements of the CPU's step loop."""
     out = {}
     for dev in ("cuda", "cpu"):
         eng, pods = synth.make_rig(48, 200, profile="rich", device=dev)
+        fused.select_rows.launches = scan.scan_chunk.launches = 0
         placed = [n for _, pl in eng.schedule_batch_stream(
             pods, chunk_size=64) for n in pl]
         out[dev] = (placed, int(eng.last_node_index))
+        if dev == "cuda":
+            assert scan.scan_chunk.launches == 4
+            assert fused.select_rows.launches == 0
     assert out["cuda"] == out["cpu"]
 
 
@@ -270,6 +278,10 @@ def test_cuda_daemon_matches_cpu_daemon(cuda, attrs):
 @pytest.mark.cuda
 def test_cuda_out_of_memory_classifies_as_oom(cuda):
     from kubernetes_tpu_torch.engine.guard import DeviceFault, DeviceGuard
+    # Blocks the caching allocator holds from earlier tests would serve
+    # part of the request: release them, so the request exceeds what the
+    # card can give.
+    torch.cuda.empty_cache()
     free, _ = torch.cuda.mem_get_info()
     g = DeviceGuard()
     with pytest.raises(DeviceFault) as err:
@@ -376,3 +388,77 @@ def test_cuda_solve_joint_matches_cpu(cuda, precision):
     c, h = out["cuda"], out["cpu"]
     assert torch.equal(c[0], h[0]) and torch.equal(c[1], h[1])
     assert c[2:] == h[2:]
+
+
+def _tf32_rig(dev: str):
+    """A rich rig whose sums TF32 would round: every third node holds a
+    123,597 KiB copy of the pods' image (ImageLocality bucket 2; TF32
+    rounds the size to 123,584 KiB, bucket 1), and 2,101 existing
+    ``svc-0`` pods sit in zone-0, so the preferred-affinity counts toward
+    ``svc-0`` pass 2,048 with an odd count."""
+    from kubernetes_tpu_torch.cache.scheduler_cache import SchedulerCache
+    from kubernetes_tpu_torch.engine.generic_scheduler import (
+        GenericScheduler, Listers)
+    nodes = synth.make_nodes(64, profile="rich", n_zones=4)
+    for nd in nodes[::3]:
+        nd.images = [api.ContainerImage(names=("kubernetes/pause:go",),
+                                        size_bytes=123597 * 1024)]
+    cache = SchedulerCache()
+    for nd in nodes:
+        cache.add_node(nd)
+    zone0 = [nd.name for nd in nodes
+             if nd.labels.get(api.ZONE_LABEL) == "zone-0"]
+    for k, pod in enumerate(synth.make_pods(2101, seed=9,
+                                            name_prefix="old")):
+        pod.labels = {"app": "svc-0"}
+        pod.node_name = zone0[k % len(zone0)]
+        cache.add_pod(pod)
+    eng = GenericScheduler(cache=cache,
+                           listers=Listers(services=synth.make_services(4)),
+                           device=dev)
+    pods = synth.make_pods(256, profile="rich", n_services=4)
+    for pod in pods[::8]:
+        pod.annotations[api.AFFINITY_ANNOTATION_KEY] = (
+            '{"podAffinity": {"preferredDuringSchedulingIgnoredDuring'
+            'Execution": [{"weight": 7, "podAffinityTerm": {"labelSelector":'
+            ' {"matchLabels": {"app": "svc-0"}}, "topologyKey": "failure-'
+            'domain.beta.kubernetes.io/zone"}}]}}')
+    return eng, pods
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["highest", "high"])
+def test_cuda_rich_sums_match_cpu(cuda, precision):
+    """ImageLocality at a 123,597 KiB image, the inter-pod priority counts
+    of a zone holding 2,101 matching pods (an odd count past 2,048, which
+    TF32 rounds), ``Solver.evaluate`` and a rich stream drain: cuda equal
+    to cpu at either f32 matmul precision (the port sums both in
+    float64)."""
+    from kubernetes_tpu_torch.ops import interpod
+    from kubernetes_tpu_torch.ops import priorities as prio
+    restore = _precision(precision)
+    try:
+        out = {}
+        for dev in ("cuda", "cpu"):
+            eng, pods = _tf32_rig(dev)
+            _, db, dc, _ = eng._compile(pods)
+            a = db.aff
+            counts = interpod.priority_counts(a.pref_w, a.match_cnt,
+                                              a.sym_match, a.sym_w,
+                                              a.sym_cnt)
+            image = prio.image_locality(db.images, dc.image_kib)
+            feasible, scores = eng.solver.evaluate(db, dc)
+            placed = [x for _, ch in eng.schedule_batch_stream(
+                pods, chunk_size=128) for x in ch]
+            out[dev] = (counts.cpu().view(torch.int32), image.cpu(),
+                        feasible.cpu(), scores.cpu().view(torch.int32),
+                        placed, int(eng.last_node_index))
+    finally:
+        restore()
+    c, h = out["cuda"], out["cpu"]
+    for x, y in zip(c[:4], h[:4]):
+        assert torch.equal(x, y)
+    assert c[4:] == h[4:]
+    assert float(h[0].view(torch.float32).max()) > 2048
+    assert float(h[1].max()) == 2.0
+

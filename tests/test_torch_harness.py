@@ -123,3 +123,21 @@ def test_cli_refuses_the_reference_records(tmp_path):
     t_parity.refuse_reference_artifact(str(tmp_path / "PARITY_cuda.json"),
                                        "PARITY.json")
     assert t_parity.backend("cpu") == {"backend": "cpu"}
+
+
+def test_judge_in_worker_processes_matches_one_process():
+    """The replay split over spawned workers, each judging its share of
+    the sampled decisions, gives the record of one in-process replay."""
+    from kubernetes_tpu_torch.perf import synth as t_synth
+    nodes = t_synth.make_nodes(60, profile="rich", n_zones=4)
+    pods = t_synth.make_pods(400, seed=1, profile="rich", n_services=4)
+    services = t_synth.make_services(4)
+    # A placement per pod that breaks some predicates, so the record
+    # holds agreements, infeasible choices and examples.
+    placements = [None if i % 13 == 0 else nodes[(i * 7) % 60].name
+                  for i in range(400)]
+    recs = [_strip(t_parity.judge(nodes, pods, services, placements,
+                                  seed=3, n_samples=40, workers=w))
+            for w in (2, 1)]
+    assert recs[0] == recs[1]
+    assert recs[1]["sampled_decisions"] == 40

@@ -39,57 +39,99 @@ CPU = torch.device("cpu")
     {"use_resources": False}])
 def test_mixed_families_route_to_the_kernel_on_cuda(changes):
     fams = {**MIXED, **changes}
-    assert scan.takes(fams)
-    assert t_sv.scan_route(CUDA, fams) == "kernel"
-    assert t_sv.scan_route(CPU, fams) == "steps"
+    assert _routes(fams, "mixed") == {"cuda": "kernel", "cpu": "steps"}
 
 
-@pytest.mark.parametrize("family", scan.RICH_FAMILIES)
+RICH = ("use_ports", "use_volumes", "use_max_ebs", "use_max_gce",
+        "use_interpod", "track_affinity", "track_saa")
+
+
+@pytest.mark.parametrize("family", RICH)
 def test_rich_families_stay_on_the_step_loop(family):
+    """Only on the CPU: on CUDA tensors a chunk holding any rich family
+    routes to the kernel, which carries them all."""
     fams = {**MIXED, family: True}
-    assert not scan.takes(fams)
-    assert t_sv.scan_route(CUDA, fams) == "steps"
-    assert t_sv.scan_route(CPU, fams) == "steps"
+    # As _solve_scan derives them: the predicate reads the carried state.
+    fams["track_affinity"] |= fams["use_interpod"]
+    # The wide policy adds ServiceAntiAffinityPriority to the defaults.
+    assert _routes(fams, "rich", "wide") == {"cuda": "kernel", "cpu": "steps"}
 
 
-def _fams_of(monkeypatch, profile: str, policy: str = "default"):
-    """The families ``_solve_scan`` derives for a compiled batch."""
+_CAPTURED: dict = {}
+
+
+def _fams_of(profile: str, policy: str = "default"):
+    """The families ``_solve_scan`` derives for a compiled batch, with
+    the solver, the torch batch and cluster, the host batch and every
+    argument ``_solve_scan`` hands ``_fused_scan`` (captured once per
+    batch; the batch is never run here)."""
+    if (profile, policy) in _CAPTURED:
+        return _CAPTURED[profile, policy]
     eng, pods, _ = ref_rig(profile, 40, 64, n_existing=60, policy=policy)
     batch, hb, hc, _ = host_inputs(eng, pods)
     _, _, tb, tc = both(hb, hc)
     solver = t_sv.Solver(torch_policy(policy))
     seen = {}
 
-    def capture(self, b, c, last, mask, score, carry, has_bias, fams,
-                prios, route=None):
-        seen["fams"] = fams
+    def capture(self, *args, route=None):
+        seen["args"] = args
         raise StopIteration
 
-    with monkeypatch.context() as m:
+    with pytest.MonkeyPatch.context() as m:
         m.setattr(t_sv.Solver, "_fused_scan", capture)
         with pytest.raises(StopIteration):
             solver._solve_scan(tb, tc, convert.counter_from_numpy(0, "cpu"),
                                None, t_sv.BatchFlags(*ref_sv.batch_flags(
                                    batch)), None, None, None)
-    return seen["fams"], solver, tb, tc, batch
+    fams = seen["args"][7]
+    _CAPTURED[profile, policy] = (fams, solver, tb, tc, batch, seen["args"])
+    return _CAPTURED[profile, policy]
+
+
+def _routes(fams: dict, profile: str, policy: str = "default") -> dict:
+    """The body ``_fused_scan`` runs by default on each device, after
+    showing that the kernel body takes ``fams``: forced onto it, a chunk
+    of the compiled batch with these families (and only the dynamic
+    priorities they carry) builds their arguments, passes every check of
+    the wrapper and stops only at its CPU tensors, without launching."""
+    _, solver, *_, args = _fams_of(profile, policy)
+    needs = {"SelectorSpreadPriority": "track_spread",
+             "ServiceSpreadingPriority": "track_spread",
+             "InterPodAffinityPriority": "track_affinity",
+             "ServiceAntiAffinityPriority": "track_saa"}
+    prios = tuple(t for t in args[8] if fams.get(needs.get(t[0]), True))
+    before = scan.scan_chunk.launches
+    with pytest.raises(ValueError, match="takes CUDA tensors"):
+        solver._fused_scan(*args[:7], fams, prios, route="kernel")
+    assert scan.scan_chunk.launches == before
+    return {"cuda": t_sv.scan_route(CUDA), "cpu": t_sv.scan_route(CPU)}
 
 
 @pytest.mark.parametrize("profile,policy,kernel", [
     ("mixed", "default", True), ("mixed", "f16", True),
-    ("rich", "default", False)])
-def test_compiled_batches_route_by_profile(profile, policy, kernel,
-                                           monkeypatch):
-    fams, *_ = _fams_of(monkeypatch, profile, policy)
-    assert scan.takes(fams) is kernel
-    assert t_sv.scan_route(CUDA, fams) == ("kernel" if kernel else "steps")
+    ("rich", "default", True)])
+def test_compiled_batches_route_by_profile(profile, policy, kernel):
+    fams, *_ = _fams_of(profile, policy)
+    assert _routes(fams, profile, policy) == {
+        "cuda": "kernel" if kernel else "steps", "cpu": "steps"}
+    if profile == "rich":
+        assert {f for f in RICH if fams[f]} >= {
+            "use_ports", "use_volumes", "use_max_ebs", "use_interpod",
+            "track_affinity"}
 
 
-def test_forcing_the_kernel_on_rich_families_raises(monkeypatch):
-    _, solver, tb, tc, batch = _fams_of(monkeypatch, "rich")
-    with pytest.raises(ValueError, match="does not carry"):
-        solver._solve_scan(tb, tc, convert.counter_from_numpy(0, "cpu"),
-                           None, t_sv.BatchFlags(*ref_sv.batch_flags(batch)),
-                           None, None, None, route="kernel")
+def test_forcing_the_kernel_on_rich_families_raises():
+    """Forced onto the kernel, the compiled rich batch passes every
+    argument check of the wrapper and stops only at the CPU tensors,
+    without launching."""
+    _, solver, tb, tc, batch, _ = _fams_of("rich")
+    flags = t_sv.BatchFlags(*ref_sv.batch_flags(batch))
+    counter = convert.counter_from_numpy(0, "cpu")
+    before = scan.scan_chunk.launches
+    with pytest.raises(ValueError, match="takes CUDA tensors"):
+        solver._solve_scan(tb, tc, counter, None, flags, None, None, None,
+                           route="kernel")
+    assert scan.scan_chunk.launches == before
 
 
 def _args(p: int = 4, n: int = 8, t: int = 3, s: int = 2, z: int = 2):
@@ -117,12 +159,149 @@ def _args(p: int = 4, n: int = 8, t: int = 3, s: int = 2, z: int = 2):
         sp_maxz=torch.zeros(s, dtype=f32))
 
 
+def _rich(p: int = 4, n: int = 8, cp: int = 3, w: int = 5, sm: int = 6,
+          sd: int = 2, ss: int = 7, kd: int = 3, nl: int = 2, gy: int = 3,
+          dd: int = 4) -> dict:
+    """Every rich family's arguments, as ``_solve_scan`` passes them."""
+    i32, f32, b8 = torch.int32, torch.float32, torch.bool
+
+    def lists(s):
+        return scan.term_lists(torch.zeros((p, s), dtype=b8))
+
+    out = dict(
+        ports_list=lists(cp), ports_used=torch.zeros((n, cp), dtype=b8),
+        vol_rw_list=lists(w), vol_ro_list=lists(w),
+        vol_any=torch.zeros((n, w), dtype=b8),
+        vol_rw=torch.zeros((n, w), dtype=b8),
+        node_dom=torch.zeros((kd, n), dtype=i32),
+        match_key=torch.zeros(sm, dtype=i32),
+        decl_key=torch.zeros(sd, dtype=i32),
+        sym_key=torch.zeros(ss, dtype=i32),
+        match_cnt=torch.zeros((sm, n), dtype=f32),
+        match_total=torch.zeros(sm, dtype=f32),
+        decl_reach=torch.zeros((sd, n), dtype=b8),
+        sym_cnt=torch.zeros((ss, n), dtype=f32),
+        match_src_list=lists(sm), decl_src_list=lists(sd),
+        sym_src_list=lists(ss),
+        aff_need_list=lists(sm), aff_self=torch.zeros((p, sm), dtype=b8),
+        anti_need_list=lists(sm), decl_match_list=lists(sd),
+        pref_list=lists(sm), pref_w=torch.zeros((p, sm), dtype=f32),
+        sym_match_list=lists(ss), sym_w=torch.zeros(ss, dtype=f32),
+        schedulable=torch.ones(n, dtype=b8),
+        saa_group=torch.zeros(p, dtype=i32), saa_src_list=lists(gy),
+        saa_dom=torch.zeros((nl, n), dtype=i32),
+        saa_labeled=torch.zeros((nl, n), dtype=b8),
+        saa_cnt=torch.zeros((nl, gy, dd), dtype=f32),
+        saa_num=torch.zeros(gy, dtype=f32),
+        terms=(("SelectorSpreadPriority", 1, 0),
+               ("InterPodAffinityPriority", 1, 0),
+               ("ServiceAntiAffinityPriority", 2, 1)))
+    for fam, width in (("ebs", 4), ("gce", 2)):
+        out.update({f"{fam}_list": lists(width),
+                    f"{fam}_extra": torch.zeros(p, dtype=i32),
+                    f"{fam}_node_extra": torch.zeros(n, dtype=i32),
+                    f"{fam}_node_err": torch.zeros(n, dtype=b8),
+                    f"pd_{fam}": torch.zeros((n, width), dtype=b8),
+                    f"{fam}_count": torch.zeros(n, dtype=i32),
+                    f"max_{fam}": 3})
+    return out
+
+
 def test_wrapper_refuses_cpu_tensors_without_launching():
     before = scan.scan_chunk.launches
     for enc_dtype in (torch.float32, torch.float16):
         with pytest.raises(ValueError, match="CUDA"):
             scan.scan_chunk(torch.zeros((4, 8), dtype=enc_dtype), **_args())
     assert scan.scan_chunk.launches == before
+
+
+def test_wrapper_takes_every_rich_family_and_refuses_cpu_tensors():
+    before = scan.scan_chunk.launches
+    for enc_dtype in (torch.float32, torch.float16):
+        with pytest.raises(ValueError, match="CUDA"):
+            scan.scan_chunk(torch.zeros((4, 8), dtype=enc_dtype),
+                            **{**_args(), **_rich()})
+    assert scan.scan_chunk.launches == before
+
+
+@pytest.mark.parametrize("field,bad", [
+    ("ports_used", lambda a: a.to(torch.uint8)),
+    ("ports_list", lambda a: (a[0][:2], a[1])),
+    ("vol_any", lambda a: a[:3]),
+    ("vol_rw", lambda a: a.t()),
+    ("vol_ro_list", lambda a: (a[0], a[1][:3])),
+    ("ebs_extra", lambda a: a.to(torch.int64)),
+    ("ebs_node_err", lambda a: a[:2]),
+    ("pd_gce", lambda a: a.to(torch.int32)),
+    ("gce_count", lambda a: a.to(torch.float32)),
+    ("node_dom", lambda a: a.t()),
+    ("match_key", lambda a: a.to(torch.int64)),
+    ("match_cnt", lambda a: a.half()),
+    ("match_total", lambda a: a[:1]),
+    ("decl_reach", lambda a: a.to(torch.float32)),
+    ("sym_cnt", lambda a: a[:, :4]),
+    ("decl_src_list", lambda a: (a[0].long(), a[1])),
+    ("aff_self", lambda a: a.to(torch.uint8)),
+    ("anti_need_list", lambda a: a[0]),
+    ("pref_w", lambda a: a.double()),
+    ("sym_w", lambda a: a[:2]),
+    ("schedulable", lambda a: a.to(torch.int32)),
+    ("saa_group", lambda a: a.to(torch.int64)),
+    ("saa_labeled", lambda a: a[:1]),
+    ("saa_num", lambda a: a[:1]),
+    ("saa_src_list", lambda a: (a[0], a[1][:-1])),
+])
+def test_wrapper_checks_every_rich_tensor(field, bad):
+    args = {**_args(), **_rich()}
+    args[field] = bad(args[field])
+    with pytest.raises(ValueError, match=field):
+        scan.scan_chunk(torch.zeros((4, 8)), **args)
+
+
+def test_wrapper_checks_the_rich_families():
+    """Partial families, terms without their state, rows out of range and
+    unknown arguments are refused before anything launches."""
+    enc = torch.zeros((4, 8))
+    base = _args()
+    rich = _rich()
+    with pytest.raises(ValueError, match="ports needs"):
+        scan.scan_chunk(enc, **base, ports_used=rich["ports_used"])
+    with pytest.raises(ValueError, match="max_ebs needs"):
+        scan.scan_chunk(enc, **base, pd_ebs=rich["pd_ebs"])
+    with pytest.raises(ValueError, match="inter-pod affinity state needs"):
+        scan.scan_chunk(enc, **{**base, "terms": (
+            ("InterPodAffinityPriority", 1, 0),)})
+    with pytest.raises(ValueError, match="inter-pod affinity state needs"):
+        scan.scan_chunk(enc, **base, aff_self=rich["aff_self"])
+    with pytest.raises(ValueError, match="without an InterPodAffinity"):
+        scan.scan_chunk(enc, **{**rich, **base})
+    with pytest.raises(ValueError, match="without a ServiceAntiAffinity"):
+        scan.scan_chunk(enc, **{**rich, **base, "terms": (
+            ("InterPodAffinityPriority", 1, 0),)})
+    with pytest.raises(ValueError, match=r"rows \[2\] outside"):
+        scan.scan_chunk(enc, **{**base, **rich, "terms": (
+            ("InterPodAffinityPriority", 1, 0),
+            ("ServiceAntiAffinityPriority", 1, 2))})
+    with pytest.raises(ValueError, match="unknown arguments"):
+        scan.scan_chunk(enc, **base, vol_ro_used=rich["vol_rw"])
+    with pytest.raises(ValueError, match="template-factored"):
+        scan.scan_chunk(enc, **{**base, "tmpl_terms": (
+            ("ServiceAntiAffinityPriority", 1, 0),)})
+
+
+@pytest.mark.parametrize("p,s,density", [
+    (1, 1, 1.0), (5, 1, 0.5), (7, 9, 0.0), (7, 9, 1.0), (33, 17, 0.1),
+    (64, 300, 0.01), (3, 0, 0.5), (0, 4, 0.5)])
+def test_term_lists_rebuild_the_dense_rows_in_order(p, s, density):
+    rng = np.random.RandomState(p * 1000 + s)
+    dense = torch.from_numpy(rng.rand(p, s) < density)
+    off, idx = scan.term_lists(dense)
+    assert off.dtype == idx.dtype == torch.int32
+    assert tuple(off.shape) == (p + 1,) and tuple(idx.shape) == (p * s,)
+    assert int(off[0]) == 0 and int(off[-1]) == int(dense.sum())
+    for row in range(p):
+        got = idx[int(off[row]):int(off[row + 1])].tolist()
+        assert got == dense[row].nonzero().flatten().tolist()
 
 
 @pytest.mark.parametrize("field,bad", [
@@ -163,7 +342,7 @@ def test_wrapper_checks_shapes_terms_and_families():
             ("LeastRequestedPriority", 1, 0),) * (scan.MAX_TERMS + 1)})
     with pytest.raises(ValueError, match="not a priority"):
         scan.scan_chunk(enc, **{**_args(), "terms": (
-            ("InterPodAffinityPriority", 1, 0),)})
+            ("ImageLocalityPriority", 1, 0),)})
     spreadless = {k: v for k, v in _args().items()
                   if k not in ("sp_node", "sp_zone")}
     with pytest.raises(ValueError, match="spread term needs sp_node"):
@@ -201,11 +380,8 @@ def _scan_source() -> str:
     return kernels.SOURCES[1].read_text()
 
 
-def test_ctypes_struct_mirrors_the_kernel_struct():
-    """The C ``ScanArgs`` and ``_ScanArgs`` list the same fields in the
-    same order, with the same array sizes and term kinds."""
-    src = _scan_source()
-    body = re.search(r"struct ScanArgs \{(.*?)\};", src, re.S).group(1)
+def _struct_fields(src: str, name: str) -> list[str]:
+    body = re.search(rf"struct {name} \{{(.*?)\}};", src, re.S).group(1)
     names = []
     for line in body.splitlines():
         decl = line.split("//")[0].strip().rstrip(";")
@@ -214,21 +390,39 @@ def test_ctypes_struct_mirrors_the_kernel_struct():
         for part in decl.split(","):
             names.append(re.sub(r"\[.*\]", "",
                                 part.strip().split()[-1]).lstrip("*"))
-    assert names == [f for f, _ in scan._ScanArgs._fields_]
+    return names
+
+
+def test_ctypes_struct_mirrors_the_kernel_struct():
+    """Each C argument struct (``ScanArgs`` and the rich families'
+    ``RichArgs``, ``PdArgs`` and ``TermList``) and its ctypes mirror list
+    the same fields in the same order, with the same array sizes and term
+    kinds (the wrapper also checks ``sizeof(ScanArgs)`` against the built
+    library before its first launch)."""
+    src = _scan_source()
+    for c_name, mirror in (("ScanArgs", scan._ScanArgs),
+                           ("RichArgs", scan._RichArgs),
+                           ("PdArgs", scan._PdArgs),
+                           ("TermList", scan._TermList)):
+        assert _struct_fields(src, c_name) == \
+            [f for f, _ in mirror._fields_], c_name
     assert f"constexpr int kMaxTerms = {scan.MAX_TERMS};" in src
     assert "16 * kMaxThreads" in src and \
         "constexpr int kMaxThreads = 1024;" in src
     assert scan.MAX_NODES == 16 * 1024
-    kinds = dict(re.findall(r"constexpr int k(Least|Most|Balanced|Spread)"
-                            r" = (\d);", src))
-    assert {int(kinds["Least"]), int(kinds["Most"]),
-            int(kinds["Balanced"]), int(kinds["Spread"])} == {0, 1, 2, 3}
+    kinds = dict(re.findall(r"constexpr int k(Least|Most|Balanced|Spread|"
+                            r"InterPod|ServiceAnti) = (\d);", src))
+    assert sorted(int(v) for v in kinds.values()) == list(range(6))
     assert scan.TERM_KINDS["LeastRequestedPriority"] == int(kinds["Least"])
     assert scan.TERM_KINDS["MostRequestedPriority"] == int(kinds["Most"])
     assert scan.TERM_KINDS["BalancedResourceAllocation"] == \
         int(kinds["Balanced"])
     assert scan.TERM_KINDS["SelectorSpreadPriority"] == \
         scan.TERM_KINDS["ServiceSpreadingPriority"] == int(kinds["Spread"])
+    assert scan.TERM_KINDS["InterPodAffinityPriority"] == \
+        scan.INTERPOD_KIND == int(kinds["InterPod"])
+    assert scan.TERM_KINDS["ServiceAntiAffinityPriority"] == \
+        scan.SERVICE_ANTI_KIND == int(kinds["ServiceAnti"])
 
 
 @pytest.mark.parametrize("policy", ["default", "f16"])
@@ -259,3 +453,18 @@ def test_cpu_chunked_mixed_drain_matches_reference(policy, cap, monkeypatch):
         if k != "counter":
             assert same(carry[k], fin_j[k]), k
     assert ("D" in carry) is (cap is None)
+
+
+def test_a_library_laid_out_otherwise_is_refused(monkeypatch):
+    """The wrapper checks ``sizeof(ScanArgs)`` of the built library
+    against its ctypes mirror before it launches."""
+    import ctypes
+
+    class _Lib:
+        def kt_scan_args_size(self):
+            return ctypes.sizeof(scan._ScanArgs) - 8
+
+    monkeypatch.setattr(scan, "library", _Lib)
+    with pytest.raises(RuntimeError, match="ctypes mirror"):
+        scan._library()
+
