@@ -15,12 +15,14 @@ fails the run with a non-zero exit:
    N = 5,000 with CUDA events;
 2b. scan kernel against plain: ``scan_chunk`` against the step loop on
    the card (``perf/scan_check.py``: choices, counter and every carried
-   state tensor bit for bit, two chunks per case, the ``mixed`` cases
-   and the ``rich`` ones, with each rig's term axes), then one 2,048-pod
-   chunk at 5,000 nodes of the ``mixed`` and of the ``rich`` north-star
-   rig, each timed with CUDA events (the launch alone, with its hoist
-   and term lists, and the step loop) against its bound, and each
-   kernel route's result held against the step loop's bit for bit;
+   state tensor bit for bit, two chunks per case, the ``mixed``, ``rich``
+   and slice-seam cases, each at every cluster size its N allows, with
+   each rig's term axes), then one 2,048-pod chunk at 5,000 nodes of the
+   ``mixed`` and of the ``rich`` north-star rig, each timed with CUDA
+   events (the launch alone at every cluster size in turns, with each
+   size's plan printed; with its hoist and term lists; the step loop)
+   against its bound, and each kernel route's result held against the
+   step loop's bit for bit;
 3. card against CPU: the streamed drain of a reduced ``mixed`` rig and
    of a ``rich`` rig, both through the scan kernel, on ``cuda`` and on
    ``cpu`` must place every pod identically, with the same counter;
@@ -423,12 +425,15 @@ def scan_bound(enc, kw: dict, init: dict | None = None,
 def time_chunk(dev, profile: str, batch_pods: int | None = None) -> dict:
     """One 2,048-pod chunk at 5,000 nodes of the ``profile`` north-star
     rig (the first chunk of a ``batch_pods`` queue compiled as one batch,
-    when given): its kernel arguments captured, then the launch alone
-    (the state restored before each), the step loop and the kernel route
-    with its hoist and term lists, in turns.  Every run of a route starts
-    from the same inputs, and each must give the first step loop's
-    choices, counter and carried state bit for bit.  Returns the times
-    (ms), the bound, the largest difference, the batch's term axes and
+    when given): its kernel arguments captured, then the launch alone at
+    every cluster size N allows (the state restored before each; five
+    rounds in turns, each round C = 1, 2, ... then back), the step loop,
+    and the kernel route with its hoist and term lists, at the plan's
+    cluster size and forced at every other one.  Every run of a route
+    starts from the same inputs, and each must give the first step
+    loop's choices, counter and carried state bit for bit.  Returns the
+    times (ms; ``ms`` at the plan's C, ``per_cluster_ms`` at each), the
+    plans, the bound, the largest difference, the batch's term axes and
     the step loops' select launches."""
     import torch
     from kubernetes_tpu_torch.engine import fused
@@ -438,8 +443,20 @@ def time_chunk(dev, profile: str, batch_pods: int | None = None) -> dict:
     ns = scan_check.north_star_chunk(5000, CHUNK, dev, profile=profile,
                                      batch_pods=batch_pods)
     enc, kw, init = ns["enc"], ns["kw"], ns["init"]
+    p, n = enc.shape
+    shape = dict(
+        t=0 if kw.get("d_plane") is None else kw["d_plane"].shape[0],
+        s=0 if kw.get("sp_node") is None else kw["sp_node"].shape[0],
+        z=0 if kw.get("sp_zone") is None else kw["sp_zone"].shape[1],
+        half=enc.dtype == torch.float16)
+    chosen = scan_mod.cluster_plan(n, **shape)
+    sizes = scan_mod.allowed_clusters(n)
+    plans = {c: scan_mod.cluster_plan(n, **shape, cluster=c) for c in sizes}
+    for c, plan in plans.items():
+        print(f"phase 2b: {profile} chunk plan {plan.describe()}"
+              f"{' (the rule)' if c == chosen.cluster else ''}")
 
-    def chunk(route: str) -> tuple[float, tuple]:
+    def chunk(route: str, cluster: int | None = None) -> tuple[float, tuple]:
         counter = torch.zeros(1, dtype=torch.int64, device=dev)
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
@@ -447,23 +464,27 @@ def time_chunk(dev, profile: str, batch_pods: int | None = None) -> dict:
         start.record()
         out = ns["sched"].solver._solve_scan(
             ns["db"], ns["dc"], counter, None, ns["flags"], None, None,
-            None, route=route)
+            None, route=route, cluster=cluster)
         stop.record()
         stop.synchronize()
         return start.elapsed_time(stop), out
 
-    def kernel_once() -> float:
+    def kernel_once(cluster: int) -> float:
         for k, v in init.items():
             kw[k].copy_(v)
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
         start.record()
-        scan_mod.scan_chunk(enc, **kw)
+        scan_mod.scan_chunk(enc, **{**kw, "cluster": cluster})
         stop.record()
         stop.synchronize()
         return start.elapsed_time(stop)
 
-    k_ms = [kernel_once() for _ in range(5)]
+    per = {c: [] for c in sizes}
+    turns = list(sizes) + list(reversed(sizes))
+    for _ in range(5):
+        for c in turns:
+            per[c].append(kernel_once(c))
     after = {k: kw[k].clone() for k in init}
     before = fused.select_rows.launches
     p_ms, ref = chunk("steps")
@@ -472,7 +493,8 @@ def time_chunk(dev, profile: str, batch_pods: int | None = None) -> dict:
         ms, out = chunk("kernel")
         h_ms.append(ms)
         runs.append(("kernel", out))
-    k_ms += [kernel_once() for _ in range(5)]
+    for c in sizes:
+        runs.append((f"kernel@{c}", chunk("kernel", c)[1]))
     p2_ms, out = chunk("steps")
     runs.append(("steps", out))
     # The kernel routes launch no select kernel: these are the two step
@@ -487,20 +509,28 @@ def time_chunk(dev, profile: str, batch_pods: int | None = None) -> dict:
         except scan_check.ScanMismatch as err:
             fail(f"scan kernel != step loop: {err}")
     bound_ms, bound_by = scan_bound(enc, kw, init, after)
-    p, n = enc.shape
-    ms = statistics.median(k_ms)
+    per_ms = {c: statistics.median(v) for c, v in per.items()}
+    ms = per_ms[chosen.cluster]
     plain_ms = statistics.median([p_ms, p2_ms])
     axes = scan_check.axis_sizes(ns["db"])
+    sweep = ", ".join(f"C={c} {per_ms[c]:.6f} ms (min {min(per[c]):.6f}, "
+                      f"max {max(per[c]):.6f})" for c in sizes)
     print(f"phase 2b: one {profile} chunk of {p} pods x {n} nodes "
-          f"({enc.dtype}; axes {axes}): kernel {ms:.6f} ms (median of "
-          f"{len(k_ms)}; min {min(k_ms):.6f}, max {max(k_ms):.6f}) = "
-          f"{ms / p * 1e3:.6f} us per step; with its hoist and term lists "
+          f"({enc.dtype}; axes {axes}), the launch alone, median of "
+          f"{len(per[sizes[0]])} in turns: {sweep}")
+    print(f"phase 2b: one {profile} chunk: kernel at the rule's "
+          f"C={chosen.cluster} {ms:.6f} ms = {ms / p * 1e3:.6f} us per "
+          f"step (C=1: {per_ms[1]:.6f} ms); with its hoist and term lists "
           f"{statistics.median(h_ms):.6f} ms; step loop {p_ms:.3f} / "
           f"{p2_ms:.3f} ms = {plain_ms / p * 1e3:.3f} us per step; bound "
-          f"{bound_ms:.6f} ms ({bound_by}); 3 kernel routes and the second "
-          f"step loop == the first step loop (choices, counter, state bit "
-          f"for bit), max_abs_err {worst}; {steps_select} select launches")
-    return {"ms": ms, "hoist_ms": statistics.median(h_ms),
+          f"{bound_ms:.6f} ms ({bound_by}); {len(runs) - 1} kernel routes "
+          f"(every C) and the second step loop == the first step loop "
+          f"(choices, counter, state bit for bit), max_abs_err {worst}; "
+          f"{steps_select} select launches")
+    return {"ms": ms, "cluster": chosen.cluster,
+            "per_cluster_ms": {str(c): v for c, v in per_ms.items()},
+            "plans": {str(c): pl.describe() for c, pl in plans.items()},
+            "hoist_ms": statistics.median(h_ms),
             "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "axes": axes, "max_abs_err": worst,
             "steps_select": steps_select}
@@ -508,9 +538,11 @@ def time_chunk(dev, profile: str, batch_pods: int | None = None) -> dict:
 
 def phase_scan(dev) -> dict:
     """scan_chunk against the step loop on every case of perf/scan_check,
-    then one mixed and one rich north-star chunk timed."""
+    at every cluster size the case's N allows, then one mixed and one
+    rich north-star chunk timed at every cluster size."""
     import torch
     from kubernetes_tpu_torch.engine import fused
+    from kubernetes_tpu_torch.engine import scan
     from kubernetes_tpu_torch.perf import scan_check
 
     worst = 0.0
@@ -518,23 +550,30 @@ def phase_scan(dev) -> dict:
     select_before = fused.select_rows.launches
     for case in scan_check.cases(dev):
         t0 = time.perf_counter()
+        launches = scan.scan_chunk.launches
         try:
-            res = scan_check.run_routes(case)
+            res = scan_check.run_routes(case, ("steps", "kernel@*"))
         except scan_check.ScanMismatch as err:
             fail(f"scan kernel != step loop: {err}")
         torch.cuda.synchronize()
         if case.infeasible != (res["placed"] == 0):
             fail(f"scan case {case.name!r} placed {res['placed']} pods")
+        if scan.scan_chunk.launches - launches != 2 * (len(res["routes"])
+                                                      - 1):
+            fail(f"scan case {case.name!r}: "
+                 f"{scan.scan_chunk.launches - launches} launches for "
+                 f"{len(res['routes']) - 1} kernel routes of 2 chunks")
         worst = max(worst, res["max_abs_err"])
         n_steps += res["steps"]
-        print(f"phase 2b: {case.name}: scan kernel == step loop (choices, "
+        print(f"phase 2b: {case.name}: scan kernel at "
+              f"{', '.join(res['routes'][1:])} == step loop (choices, "
               f"counter, state bit for bit) over {res['steps']} steps in 2 "
               f"chunks, {res['placed']} placed, axes {res['axes']}, "
               f"{time.perf_counter() - t0:.3f} s")
     select_launches = fused.select_rows.launches - select_before
-    print(f"phase 2b: all scan cases agree, {n_steps} steps, "
-          f"max_abs_err {worst}; the step loop launched the select kernel "
-          f"{select_launches} times")
+    print(f"phase 2b: all {len(scan_check.CASE_NAMES)} scan cases agree at "
+          f"every cluster size, {n_steps} steps, max_abs_err {worst}; the "
+          f"step loop launched the select kernel {select_launches} times")
     mixed = time_chunk(dev, "mixed")
     # The rich chunk is the first of the 30,000-pod queue compiled as one
     # batch, so its signature axes are the rich north star's.
@@ -542,7 +581,9 @@ def phase_scan(dev) -> dict:
     worst = max(worst, mixed["max_abs_err"], rich["max_abs_err"])
     return {"max_abs_err": worst, "ms": mixed["ms"],
             "plain_ms": mixed["plain_ms"], "bound_ms": mixed["bound_ms"],
-            "bound_by": mixed["bound_by"], "rich": rich,
+            "bound_by": mixed["bound_by"], "cluster": mixed["cluster"],
+            "per_cluster_ms": mixed["per_cluster_ms"],
+            "plans": mixed["plans"], "rich": rich,
             "select_launches": select_launches + mixed["steps_select"] +
             rich["steps_select"]}
 
@@ -2097,9 +2138,12 @@ def main() -> int:
         "bound_ms": sstats["bound_ms"],
         "bound_by": sstats["bound_by"],
         "library_ms": None,
+        "cluster": sstats["cluster"],
+        "per_cluster_ms": sstats["per_cluster_ms"],
+        "plans": sstats["plans"],
         "rich_chunk": {k: sstats["rich"][k] for k in (
-            "ms", "hoist_ms", "plain_ms", "bound_ms", "bound_by", "axes",
-            "max_abs_err")},
+            "ms", "cluster", "per_cluster_ms", "plans", "hoist_ms",
+            "plain_ms", "bound_ms", "bound_by", "axes", "max_abs_err")},
     }, {
         "name": "select_hosts",
         "route": "cuda",

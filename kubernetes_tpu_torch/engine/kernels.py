@@ -9,7 +9,8 @@ It holds three kernels, each with a plain C entry point:
   selectHost over a score and a feasible plane, one CTA per row
   (wrapper: ``ops/combine.py:select_hosts``);
 * ``kt_scan_chunk`` (``csrc/scan.cu``) — the sequential scan of a whole
-  chunk of pods in one launch (wrapper: ``engine/scan.py:scan_chunk``).
+  chunk of pods in one launch of one thread-block cluster (wrapper:
+  ``engine/scan.py:scan_chunk``).
 
 The library is named by the hash of both sources and the flags, so an
 edited source rebuilds.  ``--fmad=false`` keeps ``nvcc`` from contracting
@@ -110,7 +111,12 @@ def library() -> ctypes.CDLL:
                 lib.kt_scan_chunk.argtypes = [ctypes.c_void_p,
                                               ctypes.c_void_p]
                 lib.kt_scan_chunk.restype = ctypes.c_int
+                lib.kt_scan_max_clusters.argtypes = [
+                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+                lib.kt_scan_max_clusters.restype = ctypes.c_int
                 lib.kt_scan_args_size.argtypes = []
                 lib.kt_scan_args_size.restype = ctypes.c_int
+                lib.kt_scan_fixed_smem.argtypes = []
+                lib.kt_scan_fixed_smem.restype = ctypes.c_int
                 _lib = lib
     return _lib

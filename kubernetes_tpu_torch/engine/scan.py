@@ -1,8 +1,9 @@
 """The sequential-greedy scan of a whole chunk in one CUDA launch.
 
 :func:`scan_chunk` wraps the kernel of ``csrc/scan.cu``, which runs the P
-dependent steps of ``Solver._fused_scan``'s step loop in one CTA, for
-every family the loop carries: dynamic PodFitsResources, the
+dependent steps of ``Solver._fused_scan``'s step loop in ONE thread-block
+cluster whose CTAs split the node axis, for every family the loop
+carries: dynamic PodFitsResources, the
 template-factored or in-step resource priorities, selector/service
 spread with or without zones, and selectHost inlined (the ``mixed``
 set); host ports, NoDiskConflict, the MaxEBS/MaxGCE volume counts, the
@@ -26,14 +27,27 @@ to the JAX package; the kernel is held against it bit for bit on the card
 every family of the step, so ``_fused_scan`` sends every chunk on CUDA
 tensors here.
 
+The launch is planned by :func:`cluster_plan`: the cluster size C (by
+the rule below, or forced by ``scan_chunk(cluster=...)``, which only the
+checks do), each CTA's node slice, threads and nodes per thread, and
+each CTA's shared memory: the fixed records, the pod slots, the
+replicated spread state, the enc ring, then the node planes' slices
+(``packed``, ``alloc``, ``node_zone``, ``sp_node``, ``D``, in that order)
+as far as the 232,448-byte budget allows; a plane that does not fit
+stays in device memory.
+
 :func:`scan_chunk` takes CUDA tensors only, launches on the current
 stream, never synchronises, raises on a failed launch, and counts its
-launches in ``scan_chunk.launches``.
+launches in ``scan_chunk.launches``.  Before the first launch of each
+configuration it checks that one such cluster can be resident
+(``cudaOccupancyMaxActiveClusters``) and raises, naming C, the threads
+and the shared-memory bytes, if not; it never shrinks C.
 """
 
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 
 import torch
 
@@ -50,6 +64,136 @@ INTERPOD_KIND = 4
 SERVICE_ANTI_KIND = 5
 MAX_TERMS = 8
 MAX_NODES = 16384
+
+# The launch plan (csrc/scan.cu SmemPlan).
+CLUSTER_SIZES = (1, 2, 4, 8, 16)
+# The rule: the cluster size of the first (largest N, C) pair that N
+# fits.  Chosen from perf/scan_sweep.py's sweep of both profiles at 64 to
+# 16,384 nodes (PERF.md): one CTA is fastest up to ~640 nodes, where the
+# cluster's exchanges cost more than the per-node work they split; 8
+# CTAs up to ~2,000 nodes; 16 beyond.  2 and 4 CTAs never won.
+RULE = ((640, 1), (2048, 8), (MAX_NODES, 16))
+KS = (1, 2, 4, 8, 16)  # KT_SCAN_KS
+MAX_THREADS = 1024
+SMEM_LIMIT = 232448       # bytes of shared memory a block may use
+FIXED_SMEM = 5456         # sizeof(Records)
+SLOT_HEAD = 40            # kSlotIncr: the pod slot's words before incr
+MAX_STAGES = 4
+# The node planes a CTA may hold, in the order the budget takes them.
+PLANES = ("packed", "alloc", "node_zone", "sp_node", "d_plane")
+
+
+def _up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+@dataclass(frozen=True)
+class ScanPlan:
+    """One launch of the scan kernel: ``cluster`` CTAs, CTA r owning the
+    nodes ``slices[r]``; each CTA ``threads`` threads of ``k`` nodes and
+    ``smem`` bytes of dynamic shared memory, laid out at the offsets
+    (-1: the plane stays in device memory)."""
+
+    n: int
+    cluster: int
+    slice: int
+    threads: int
+    k: int
+    stages: int
+    smem: int
+    slot_words: int
+    off_slots: int
+    off_repl: int
+    off_ring: int
+    stage_bytes: int
+    offsets: dict
+
+    @property
+    def slices(self) -> list[tuple[int, int]]:
+        return [(r * self.slice, min(self.n, (r + 1) * self.slice))
+                for r in range(self.cluster)]
+
+    @property
+    def resident(self) -> tuple[str, ...]:
+        return tuple(k for k in PLANES if self.offsets[k] >= 0)
+
+    def describe(self) -> str:
+        return (f"C={self.cluster} x {self.threads} threads, K={self.k}, "
+                f"slice {self.slice}, {self.stages} stages, {self.smem} B "
+                f"shared memory per CTA, resident "
+                f"{', '.join(self.resident) or 'none'}")
+
+
+def allowed_clusters(n: int) -> tuple[int, ...]:
+    """The cluster sizes that leave no CTA without nodes at N = n."""
+    return tuple(c for c in CLUSTER_SIZES
+                 if c == 1 or (c - 1) * _up(-(-n // c), 8) < n)
+
+
+def cluster_plan(n: int, *, t: int = 0, s: int = 0, z: int = 0,
+                 half: bool = False, cluster: int | None = None
+                 ) -> ScanPlan:
+    """The plan for N = ``n`` nodes, T = ``t`` templates (0: no ``D``),
+    S = ``s`` spread groups (0: no spread), Z = ``z`` zones (0: no
+    zones) and an f16 (``half``) or f32 enc row.
+
+    C: forced by ``cluster``, else by :data:`RULE` (K is then 1: at most
+    1,024 nodes per CTA).  Slices: n at C = 1, else ceil(n / C) rounded
+    up to 8 nodes (so each CTA's slice of an f32 row starts on a 32-byte
+    sector), in rank order, the last taking the rest.  K: the smallest instantiation that covers a slice with at
+    most 1,024 threads.  Shared memory, in order: the records, one pod
+    slot per ring stage and one more, the spread replicas (S maxima, S
+    zone maxima, S flags, the [S, Z] zone counts and zone-blend table)
+    and the [T, 2] templates, the enc ring (4 stages, fewer while the
+    ring would take more than half the budget, at least 2), then each of
+    :data:`PLANES` that the CTA's slice needs and that still fits, in
+    that order."""
+    if not 1 <= n <= MAX_NODES:
+        raise ValueError(f"scan_chunk: takes 1 <= N <= {MAX_NODES} nodes, "
+                         f"got {n}")
+    ok = allowed_clusters(n)
+    if cluster is None:
+        c = next(c for bound, c in RULE if n <= bound)
+    else:
+        if cluster not in CLUSTER_SIZES or isinstance(cluster, bool):
+            raise ValueError(f"scan_chunk: cluster must be one of "
+                             f"{CLUSTER_SIZES} or None, got {cluster!r}")
+        c = cluster
+    if c not in ok:
+        raise ValueError(f"scan_chunk: a cluster of {c} CTAs leaves a CTA "
+                         f"without nodes at N = {n} (allowed: {ok})")
+    slice_ = n if c == 1 else _up(-(-n // c), 8)
+    k = next(k for k in KS if -(-slice_ // (32 * k)) <= MAX_THREADS // 32)
+    threads = 32 * -(-slice_ // (32 * k))
+    es = 2 if half else 4
+    # The spread_incr row's words, from the aligned one down.
+    slot_words = SLOT_HEAD + (-(-s // 4) + 1 if s else 0)
+    stage_bytes = _up((slice_ + 2) * es, 16)
+    stages = MAX_STAGES
+    while stages > 2 and stages * stage_bytes > SMEM_LIMIT // 2:
+        stages -= 1
+    off = FIXED_SMEM
+    off_slots = off
+    off = _up(off + (stages + 1) * slot_words * 4, 16)
+    off_repl = off
+    off = _up(off + 4 * (3 * s + 2 * s * z) + 8 * t, 16)
+    off_ring = off
+    off += stages * stage_bytes
+    if off > SMEM_LIMIT:
+        raise ValueError(f"scan_chunk: {off} bytes of shared memory per CTA "
+                         f"at C = {c} exceed {SMEM_LIMIT}")
+    per_node = {"packed": 24, "alloc": 16, "node_zone": 4 if z else 0,
+                "sp_node": 4 * s, "d_plane": 4 * t}
+    offsets = {}
+    for name in PLANES:
+        need = _up(per_node[name] * slice_, 16)
+        if need and off + need <= SMEM_LIMIT:
+            offsets[name] = off
+            off += need
+        else:
+            offsets[name] = -1
+    return ScanPlan(n, c, slice_, threads, k, stages, off, slot_words,
+                    off_slots, off_repl, off_ring, stage_bytes, offsets)
 
 def term_lists(dense: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-pod lists of a [P, S] table's set entries: (``off`` [P + 1],
@@ -123,6 +267,23 @@ class _RichArgs(ctypes.Structure):
     ]
 
 
+class _SmemPlan(ctypes.Structure):
+    """csrc/scan.cu ``SmemPlan``, field for field."""
+
+    _fields_ = [(name, ctypes.c_int) for name in (
+        "cluster", "slice", "threads", "k", "stages", "bytes", "slot_words",
+        "off_slots", "off_repl", "off_ring", "stage_bytes", "off_packed",
+        "off_alloc", "off_zone", "off_sp", "off_d")]
+
+
+def plan_struct(plan: ScanPlan) -> _SmemPlan:
+    """The kernel's ``SmemPlan`` for ``plan``."""
+    return _SmemPlan(
+        plan.cluster, plan.slice, plan.threads, plan.k, plan.stages,
+        plan.smem, plan.slot_words, plan.off_slots, plan.off_repl,
+        plan.off_ring, plan.stage_bytes, *(plan.offsets[k] for k in PLANES))
+
+
 class _ScanArgs(ctypes.Structure):
     """csrc/scan.cu ``ScanArgs``, field for field."""
 
@@ -147,7 +308,7 @@ class _ScanArgs(ctypes.Structure):
         ("tmpl_kind", ctypes.c_int * MAX_TERMS),
         ("tmpl_w", ctypes.c_float * MAX_TERMS),
         ("term_aux", ctypes.c_int * MAX_TERMS),
-        ("rich", ctypes.c_int), ("r", _RichArgs),
+        ("rich", ctypes.c_int), ("r", _RichArgs), ("plan", _SmemPlan),
     ]
 
 
@@ -354,14 +515,43 @@ RICH_ARGS = frozenset((
 
 def _library() -> ctypes.CDLL:
     """The kernel library, checked to lay ``ScanArgs`` out as
-    :class:`_ScanArgs` does."""
+    :class:`_ScanArgs` does and to reserve the fixed shared memory the
+    plan reserves."""
     lib = library()
     size = lib.kt_scan_args_size()
     if size != ctypes.sizeof(_ScanArgs):
         raise RuntimeError(f"scan_chunk: ScanArgs is {size} bytes in "
                            f"csrc/scan.cu, {ctypes.sizeof(_ScanArgs)} in "
                            f"its ctypes mirror")
+    fixed = lib.kt_scan_fixed_smem()
+    if fixed != FIXED_SMEM:
+        raise RuntimeError(f"scan_chunk: the kernel's fixed shared memory "
+                           f"is {fixed} bytes, the plan reserves "
+                           f"{FIXED_SMEM}")
     return lib
+
+
+# Configurations whose occupancy was checked: (K, f16, rich, C, threads,
+# shared-memory bytes).
+_resident_ok: set = set()
+
+
+def _check_resident(lib, c: "_ScanArgs", stream: ctypes.c_void_p,
+                    key: tuple) -> None:
+    """Raise unless one cluster of this launch can be resident."""
+    if key in _resident_ok:
+        return
+    clusters = ctypes.c_int(0)
+    err = lib.kt_scan_max_clusters(ctypes.byref(c), stream,
+                                   ctypes.byref(clusters))
+    pl = c.plan
+    if err != 0 or clusters.value < 1:
+        raise RuntimeError(
+            f"scan_chunk: a cluster of C={pl.cluster} CTAs of {pl.threads} "
+            f"threads with {pl.bytes} bytes of shared memory each cannot be "
+            f"resident on this card (cudaOccupancyMaxActiveClusters = "
+            f"{clusters.value}, cudaError {err})")
+    _resident_ok.add(key)
 
 
 def scan_chunk(enc: torch.Tensor, *, request: torch.Tensor,
@@ -380,6 +570,7 @@ def scan_chunk(enc: torch.Tensor, *, request: torch.Tensor,
                has_zones: torch.Tensor | None = None,
                sp_zone: torch.Tensor | None = None,
                sp_maxz: torch.Tensor | None = None,
+               cluster: int | None = None,
                **rich) -> torch.Tensor:
     """Run one chunk's P scan steps in one launch; returns ``choices``
     [P] int32 (-1 = unplaced).
@@ -428,7 +619,9 @@ def scan_chunk(enc: torch.Tensor, *, request: torch.Tensor,
       [L, Gy, D] and ``saa_num`` [Gy] f32.
 
     ``terms`` are the other dynamic priorities as (name, weight, aux), in
-    the step loop's order."""
+    the step loop's order.  ``cluster`` forces the cluster size (1, 2, 4,
+    8 or 16; the checks use it); None takes :func:`cluster_plan`'s
+    rule."""
     if not isinstance(enc, torch.Tensor) or enc.dim() != 2 or \
             enc.dtype not in (torch.float32, torch.float16) or \
             not enc.is_contiguous():
@@ -490,6 +683,8 @@ def scan_chunk(enc: torch.Tensor, *, request: torch.Tensor,
         args["sp_maxz"] = _check("sp_maxz", sp_maxz, f32, (s,))
     r_tensors, r_lists, r_pds, r_ints = _rich_args(p, n, kinds, aux, rich)
     is_rich = bool(r_tensors or r_lists or r_pds)
+    plan = cluster_plan(n, t=t, s=s, z=z, half=enc.dtype == torch.float16,
+                        cluster=cluster)
 
     dev = enc.device
     if dev.type != "cuda":
@@ -498,6 +693,8 @@ def scan_chunk(enc: torch.Tensor, *, request: torch.Tensor,
     if dev.index != torch.cuda.current_device():
         raise ValueError("scan_chunk: tensors must lie on the current CUDA "
                          "device")
+    if enc.data_ptr() % 4:
+        raise ValueError("scan_chunk: enc must start on a 4-byte boundary")
     every = dict(args)
     every.update(r_tensors)
     for name, pair in r_lists.items():
@@ -545,9 +742,12 @@ def scan_chunk(enc: torch.Tensor, *, request: torch.Tensor,
                 setattr(pd, key, val)
     for name, val in r_ints.items():
         setattr(c.r, name, val)
-    err = _library().kt_scan_chunk(
-        ctypes.byref(c),
-        ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    c.plan = plan_struct(plan)
+    lib = _library()
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    _check_resident(lib, c, stream, (plan.k, c.half, c.rich, plan.cluster,
+                                     plan.threads, plan.smem))
+    err = lib.kt_scan_chunk(ctypes.byref(c), stream)
     if err != 0:
         raise RuntimeError(f"scan_chunk: kernel launch failed (cudaError "
                            f"{err})")

@@ -776,7 +776,7 @@ class Solver:
                     carry: dict | None = None,
                     live: torch.Tensor | None = None,
                     extra_mask: torch.Tensor | None = None,
-                    route: str | None = None
+                    route: str | None = None, cluster: int | None = None
                     ) -> tuple[torch.Tensor, torch.Tensor, dict]:
         """The sequential scan, with an additive per-(pod,node) score bias.
 
@@ -787,7 +787,8 @@ class Solver:
         rows (pad rows are infeasible everywhere, place nothing and bump
         no counter); ``extra_mask`` [P,N] is an extra hard feasibility
         plane.  ``route`` forces the body (``scan_route`` chooses by
-        default).  Returns (choices [P] int32, counter [1] int64, final
+        default) and ``cluster`` the kernel's cluster size, as the checks
+        do.  Returns (choices [P] int32, counter [1] int64, final
         state dict).  The carry's tensors are updated in place: a
         chunk's final state is consumed by the next chunk only."""
         n = c.alloc.shape[0]
@@ -863,7 +864,7 @@ class Solver:
                           for nm, _, _ in dynamic_prios))
         return self._fused_scan(b, c, last_node_index, static_mask,
                                 static_score, carry, score_bias is not None,
-                                fams, dynamic_prios, route)
+                                fams, dynamic_prios, route, cluster)
 
     # Dynamic priorities whose pod-dependence is ONLY the nonzero-request
     # row: their per-step [N] score plane is a function of (template,
@@ -948,7 +949,8 @@ class Solver:
                     last_node_index: torch.Tensor,
                     static_mask: torch.Tensor, static_score: torch.Tensor,
                     carry: dict | None, has_bias: bool, fams: dict,
-                    dynamic_prios: tuple, route: str | None = None
+                    dynamic_prios: tuple, route: str | None = None,
+                    cluster: int | None = None
                     ) -> tuple[torch.Tensor, torch.Tensor, dict]:
         """The fused scan body, decision-identical to the JAX package's
         ``_fused_scan`` (solver.py:1319-1665):
@@ -970,7 +972,7 @@ class Solver:
         ``index_add_`` / ``index_copy_``), never a host value.  With
         ``route == "kernel"`` the whole chunk of steps is one launch of
         ``engine/scan.py:scan_chunk`` on the same encoded plane and the
-        same state."""
+        same state (``cluster`` forces its cluster size)."""
         dev = c.alloc.device
         route = route or scan_route(dev)
         n = c.alloc.shape[0]
@@ -1101,7 +1103,7 @@ class Solver:
                 enc, request=b.request, nonzero=b.nonzero,
                 zero_request=b.zero_request, alloc=c.alloc, packed=packed,
                 counter=state["counter"], terms=other_prios,
-                use_resources=use_resources, **kw)
+                use_resources=use_resources, cluster=cluster, **kw)
             return choices, state["counter"], state
 
         counter = state["counter"]

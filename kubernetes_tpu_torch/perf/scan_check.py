@@ -2,9 +2,10 @@
 
 ``chip_smoke.py`` and ``tests/test_torch_cuda.py`` run these cases on the
 card: each compiles one batch, runs it through ``Solver._solve_scan``
-twice from the same inputs — once with ``route="steps"`` (the step loop)
-and once with ``route="kernel"`` (``engine/scan.py:scan_chunk``), in two
-chunks so the second continues the first's carried state — and requires
+from the same inputs — once with ``route="steps"`` (the step loop) and
+once per kernel route (``engine/scan.py:scan_chunk``; ``"kernel"`` takes
+the plan's cluster size, ``"kernel@C"`` forces C CTAs), in two chunks so
+the second continues the first's carried state — and requires
 exact equality of the choices, the counter and every carried state
 tensor (floats compared bit for bit) after each chunk: ``packed``, ``D``
 and the spread planes, and for the rich families ``ports_used``,
@@ -38,6 +39,19 @@ priorities (zone, pool).  Then every family at once at N = 1, 1,025,
 with a non-integral bias; disks at their maxima; an anti-affinity group
 larger than the cluster (unplaced steps that carry affinity state); and
 the first 512 pods of the ``rich`` north-star rig.
+
+The ``seams`` cases aim at the cluster's slice boundaries, in ``mixed``
+and ``rich``: identical nodes whose ties straddle two CTAs with the
+counter at N - 1 (the ix-th tie is the last node, in the last CTA); the
+counter at 515 on identical nodes, so the picks walk across the slice
+edges of every cluster size (a placed node at a slice's first and last
+node); N = 1,027 (f32) and N = 1,030 (f16), which no 4 x C divides, so
+rows of enc start off the 16-byte grid (and, in f16, off the 4-byte
+grid: the ring's first and last words); T = 64 templates at N = 16,384,
+where ``D`` is too large for shared memory at any cluster size and stays
+in device memory; and 250 pods in two chunks, so the second chunk's
+bool tables (``zero_request``, ``spread_incr``) start off the 4-byte
+grid, with every third pod requesting nothing.
 """
 
 from __future__ import annotations
@@ -103,10 +117,18 @@ class Case:
     masked_rows: bool = False
 
 
+def _many_templates(device) -> tuple:
+    """N = 16,384 with 40 distinct pod requests: T = 64 templates."""
+    sched, pods = _rig(device, 16384, 64)
+    for k, pod in enumerate(pods):
+        pod.containers[0].requests["cpu"] = f"{50 + 10 * (k % 40)}m"
+    return sched, pods
+
+
 def _rig(device, n_nodes: int, n_pods: int, profile: str = "mixed",
-         policy_name: str = "default") -> tuple:
+         policy_name: str = "default", n_services: int = 4) -> tuple:
     sched, pods = synth.make_rig(n_nodes, n_pods, profile=profile,
-                                 device=device)
+                                 n_services=n_services, device=device)
     if policy_name != "default":
         sched = GenericScheduler(policy=policy(policy_name),
                                  cache=sched.cache, listers=sched.listers,
@@ -273,13 +295,16 @@ FAMILIES = ("host ports", "volumes", "disk counts",
 
 
 def rig_spec(family: str, n_nodes: int, n_pods: int,
-             n_existing: int | None = None, seed: int = 0) -> RigSpec:
+             n_existing: int | None = None, seed: int = 0,
+             node_profile: str = "mixed") -> RigSpec:
     """``family`` (one of :data:`FAMILIES`, or ``all`` / ``all, f16`` for
-    every family at once) on a ``mixed`` cluster of ``n_nodes`` in 4
-    zones, with ``n_existing`` pods (default: one per node) bound round
-    robin by a stride and ``n_pods`` pending ones."""
+    every family at once) on a ``node_profile`` cluster of ``n_nodes``
+    (``mixed``: in 4 zones; ``uniform``: identical nodes), with
+    ``n_existing`` pods (default: one per node) bound round robin by a
+    stride and ``n_pods`` pending ones."""
     families = FAMILIES if family.startswith("all") else (family,)
-    nodes = synth.make_nodes(n_nodes, seed=seed, profile="mixed", n_zones=4)
+    nodes = synth.make_nodes(n_nodes, seed=seed, profile=node_profile,
+                             n_zones=4)
     n_old = n_nodes if n_existing is None else n_existing
     existing = synth.make_pods(n_old, seed=seed + 7, profile="mixed",
                                n_services=4, name_prefix="old")
@@ -352,7 +377,42 @@ def _cases() -> dict:
     out["rich: all, non-integral bias"] = _family_rig("all", 1025, 256)
     out["rich: all, the rich north-star rig"] = \
         lambda d: _rig(d, 5000, 512, profile="rich")
+    # The cluster's slice seams.
+    out["seams: ties straddle CTAs, counter 1024"] = \
+        lambda d: _rig(d, 1025, 256, profile="uniform")
+    out["seams: picks walk the slice edges, counter 515"] = \
+        lambda d: _rig(d, 1025, 256, profile="uniform")
+    out["seams: N=1027"] = lambda d: _rig(d, 1027, 256)
+    out["seams: N=1030, f16 plane"] = \
+        lambda d: _rig(d, 1030, 256, policy_name="f16")
+    out["seams: T=64 at N=16384, D in device memory"] = _many_templates
+    out["rich: seams, ties straddle CTAs, counter 1024"] = \
+        _family_rig("all", 1025, 256, node_profile="uniform")
+    out["rich: seams, picks walk the slice edges, counter 515"] = \
+        _family_rig("all", 1025, 256, node_profile="uniform")
+    out["rich: seams, all, N=1027"] = _family_rig("all", 1027, 256)
+    out["rich: seams, all, f16 plane, N=1030"] = \
+        _family_rig("all, f16", 1030, 256)
+    # 250 pods in two chunks: the second chunk's bool tables (zero_request,
+    # and spread_incr with one service's S <= 2 groups) start at pod 125,
+    # off the 4-byte grid.
+    out["seams: 250 pods, the second chunk off the 4-byte grid"] = \
+        _zero_requests(lambda d: _rig(d, 1025, 250, n_services=1))
+    out["rich: seams, 250 pods, the second chunk off the 4-byte grid"] = \
+        _zero_requests(_family_rig("all", 1025, 250))
     return out
+
+
+def _zero_requests(factory):
+    """``factory`` with every third pod requesting nothing (zero_request
+    set), so neighbouring bytes of zero_request differ."""
+    def build_rig(device):
+        sched, pods = factory(device)
+        for pod in pods[::3]:
+            for ctr in pod.containers:
+                ctr.requests = {}
+        return sched, pods
+    return build_rig
 
 
 _FACTORIES = _cases()
@@ -430,10 +490,18 @@ def run_routes(case: Case, routes: tuple = ("steps", "kernel"),
                chunks: int = 2) -> dict:
     """Run the case once per route, chunk by chunk from the same inputs;
     raise :class:`ScanMismatch` unless every route agrees with the first
-    exactly after every chunk.  Returns {"steps": scan steps per route,
-    "max_abs_err": largest difference seen (0.0 when they agree),
-    "placed": placements, "axes": the batch's term axes}."""
+    exactly after every chunk.  Routes: ``steps``, ``kernel`` (the plan's
+    cluster size), ``kernel@C`` (C CTAs forced) or ``kernel@*`` (one
+    route per cluster size the case's N allows).  Returns {"steps":
+    scan steps per route, "max_abs_err": largest difference seen (0.0
+    when they agree), "placed": placements, "axes": the batch's term
+    axes, "routes": the routes run}."""
     db, dc, flags = _compile(case)
+    n = dc.alloc.shape[0]
+    routes = tuple(x for r in routes for x in (
+        [f"kernel@{c}" for c in scan_mod.allowed_clusters(n)]
+        if r == "kernel@*" else [r]))
+    forced = {r: _cluster_of(r) for r in routes}
     p = len(case.pods)
     size = -(-p // chunks)
     dev = dc.alloc.device
@@ -450,7 +518,8 @@ def run_routes(case: Case, routes: tuple = ("steps", "kernel"),
         for r in routes:
             counter, carry = state[r]
             ch, counter, carry = case.sched.solver._solve_scan(
-                bk, dc, counter, sb, flags, carry, None, extra, route=r)
+                bk, dc, counter, sb, flags, carry, None, extra,
+                route=r.partition("@")[0], cluster=forced[r])
             state[r] = (counter, carry)
             got[r] = (ch, counter, carry)
         for r in routes[1:]:
@@ -459,7 +528,17 @@ def run_routes(case: Case, routes: tuple = ("steps", "kernel"),
                 got[r], got[routes[0]]))
         placed += int((got[routes[0]][0] >= 0).sum())
     return {"steps": p, "max_abs_err": worst, "placed": placed,
-            "axes": axis_sizes(db)}
+            "axes": axis_sizes(db), "routes": routes}
+
+
+def _cluster_of(route: str) -> int | None:
+    """The cluster size a ``kernel@C`` route forces (None otherwise)."""
+    name, at, c = route.partition("@")
+    if name not in ("steps", "kernel") or (at and (
+            name != "kernel" or not c.isdigit())):
+        raise ValueError(f"scan_check: route {route!r} is not steps, "
+                         f"kernel, kernel@C or kernel@*")
+    return int(c) if at else None
 
 
 def compare(where: str, got: tuple, ref: tuple) -> float:

@@ -1,6 +1,7 @@
 """Tests of the PyTorch port that need the card: the CUDA select kernel
 against its plain version, the scan kernel against its plain version (the
-step loop) on every case of ``perf/scan_check.py``, the single-pod
+step loop) on every case of ``perf/scan_check.py`` at the plan's cluster
+size and at one CTA, the single-pod
 select kernel (``kt_select_hosts``) against ``select_hosts_plain``, and
 drains, single-pod decisions, extender responses, the scheduler daemon
 the preemption victim solve, the topology spread planes and drain, the
@@ -95,13 +96,36 @@ def test_cuda_drain_matches_cpu_drain(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("profile", ["mixed", "rich"])
+def test_cuda_drain_in_chunks_off_the_4_byte_grid_matches_cpu(cuda, profile):
+    """Chunks of 125 pods: every chunk after the first hands the kernel
+    bool tables (zero_request, spread_incr) that start off the 4-byte
+    grid; every third pod requests nothing."""
+    out = {}
+    for dev in ("cuda", "cpu"):
+        eng, pods = synth.make_rig(300, 500, profile=profile, n_services=1,
+                                   device=dev)
+        for pod in pods[::3]:
+            for ctr in pod.containers:
+                ctr.requests = {}
+        scan.scan_chunk.launches = 0
+        placed = [n for _, pl in eng.schedule_batch_stream(
+            pods, chunk_size=125) for n in pl]
+        out[dev] = (placed, int(eng.last_node_index))
+        if dev == "cuda":
+            assert scan.scan_chunk.launches == 4
+    assert out["cuda"] == out["cpu"]
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("name", scan_check.CASE_NAMES)
 def test_cuda_scan_kernel_matches_step_loop(cuda, name):
+    """At the plan's cluster size and at C = 1."""
     case = scan_check.case(name, cuda)
     before = scan.scan_chunk.launches
-    res = scan_check.run_routes(case)
+    res = scan_check.run_routes(case, ("steps", "kernel", "kernel@1"))
     torch.cuda.synchronize()
-    assert scan.scan_chunk.launches == before + 2  # one per chunk
+    assert scan.scan_chunk.launches == before + 4  # one per chunk and route
     assert res["max_abs_err"] == 0.0
     assert (res["placed"] == 0) is case.infeasible
 

@@ -6,7 +6,9 @@ against the kernel on the card by ``tests/test_torch_cuda.py`` and
 ``chip_smoke.py``.  Here: which chunks the dispatch sends to the kernel,
 the wrapper's argument checks, the one ``nvcc`` command that builds the
 library (hashing both sources, FMA contraction off), the C argument
-struct against its ctypes mirror, and a chunked ``mixed`` drain through
+struct against its ctypes mirror, the cluster plan (slices, threads,
+shared memory and the planes it keeps resident) and the ``cluster=``
+checks, and a chunked ``mixed`` drain through
 the new dispatch still exactly equal to the JAX package's ``_solve_scan``
 (choices, counter and every carried state plane).  Tolerance: exact."""
 
@@ -22,6 +24,7 @@ import torch
 from kubernetes_tpu.engine import solver as ref_sv
 from kubernetes_tpu_torch.engine import convert, kernels, scan
 from kubernetes_tpu_torch.engine import solver as t_sv
+from kubernetes_tpu_torch.perf import scan_ablation
 
 from torch_parity import both, host_inputs, ref_rig, same, torch_policy
 
@@ -403,7 +406,8 @@ def test_ctypes_struct_mirrors_the_kernel_struct():
     for c_name, mirror in (("ScanArgs", scan._ScanArgs),
                            ("RichArgs", scan._RichArgs),
                            ("PdArgs", scan._PdArgs),
-                           ("TermList", scan._TermList)):
+                           ("TermList", scan._TermList),
+                           ("SmemPlan", scan._SmemPlan)):
         assert _struct_fields(src, c_name) == \
             [f for f, _ in mirror._fields_], c_name
     assert f"constexpr int kMaxTerms = {scan.MAX_TERMS};" in src
@@ -423,6 +427,193 @@ def test_ctypes_struct_mirrors_the_kernel_struct():
         scan.INTERPOD_KIND == int(kinds["InterPod"])
     assert scan.TERM_KINDS["ServiceAntiAffinityPriority"] == \
         scan.SERVICE_ANTI_KIND == int(kinds["ServiceAnti"])
+    # The plan's constants: the shared-memory limit, the ring depth, the
+    # instantiations, the pod slot's head and the fixed records.
+    assert f"constexpr int kSmemLimit = {scan.SMEM_LIMIT};" in src
+    assert f"constexpr int kMaxStages = {scan.MAX_STAGES};" in src
+    ks = re.search(r"#define KT_SCAN_KS\(X\) (.*)", src).group(1)
+    assert tuple(int(k) for k in re.findall(r"X\((\d+)\)", ks)) == scan.KS
+    off = int(re.search(r"constexpr int kSlotOff = (\d+);", src).group(1))
+    lists = int(re.search(r"kLists = (\d+);", src).group(1))
+    assert "kSlotIncr = kSlotOff + 2 * kLists;" in src
+    assert off + 2 * lists == scan.SLOT_HEAD
+    assert _records_size(src) == scan.FIXED_SMEM
+
+
+def _records_size(src: str) -> int:
+    """sizeof(Records) from its declaration (4-, 8- and 16-byte
+    fields)."""
+    consts = {"kMaxWarps": 32, "kMaxK": 16,
+              "kMaxStages": scan.MAX_STAGES}
+    widths = {"int4": 16, "float2": 8, "unsigned long long": 8}
+    body = re.search(r"struct Records \{(.*?)\};", src, re.S).group(1)
+    size = align = 0
+    for line in body.splitlines():
+        decl = line.split("//")[0].strip().rstrip(";")
+        if not decl:
+            continue
+        width = next((w for t, w in widths.items() if decl.startswith(t)),
+                     4)
+        count = 1
+        for dim in re.findall(r"\[(\w+)\]", decl):
+            count *= int(dim) if dim.isdigit() else consts[dim]
+        size = -(-size // width) * width + width * count
+        align = max(align, width)
+    return -(-size // align) * align
+
+
+@pytest.mark.parametrize("n", [1, 1025, 5000, 16384])
+@pytest.mark.parametrize("t", [32, 64])
+@pytest.mark.parametrize("s", [8, 64])
+def test_cluster_plan_slices_cover_the_nodes_in_rank_order(n, t, s):
+    """At the rule's cluster size and every allowed one: slices
+    contiguous, in rank order, covering N exactly, none empty; each CTA's
+    threads cover its slice at K nodes per thread; the shared memory
+    (regions 16-byte aligned, not overlapping) within 232,448 bytes."""
+    plans = [scan.cluster_plan(n, t=t, s=s, z=12)]
+    plans += [scan.cluster_plan(n, t=t, s=s, z=12, cluster=c)
+              for c in scan.allowed_clusters(n)]
+    for plan in plans:
+        slices = plan.slices
+        assert len(slices) == plan.cluster
+        assert slices[0][0] == 0 and slices[-1][1] == n
+        for (lo, hi), (lo2, _) in zip(slices, slices[1:]):
+            assert hi == lo2
+        assert all(hi > lo for lo, hi in slices)
+        if plan.cluster > 1:
+            assert plan.slice % 8 == 0
+        assert plan.k in scan.KS
+        assert plan.threads % 32 == 0 and plan.threads <= 1024
+        assert plan.threads * plan.k >= plan.slice
+        assert plan.threads - 32 < -(-plan.slice // plan.k)
+        assert plan.smem <= scan.SMEM_LIMIT
+        assert 2 <= plan.stages <= scan.MAX_STAGES
+        starts = [plan.off_slots, plan.off_repl, plan.off_ring] + [
+            off for off in plan.offsets.values() if off >= 0]
+        assert all(x % 16 == 0 for x in starts[1:])
+        assert sorted(starts) == starts
+        assert plan.off_slots == scan.FIXED_SMEM
+        assert plan.stage_bytes >= (plan.slice + 2) * 4
+        assert plan.slot_words == scan.SLOT_HEAD + -(-s // 4) + 1
+
+
+def test_the_plan_fills_the_kernel_struct():
+    plan = scan.cluster_plan(5000, t=32, s=8, z=12, cluster=8)
+    st = scan.plan_struct(plan)
+    assert (st.cluster, st.slice, st.threads, st.k, st.stages, st.bytes,
+            st.slot_words) == (8, 632, 640, 1, 4, plan.smem, 43)
+    assert (st.off_slots, st.off_repl, st.off_ring, st.stage_bytes) == (
+        plan.off_slots, plan.off_repl, plan.off_ring, plan.stage_bytes)
+    assert [st.off_packed, st.off_alloc, st.off_zone, st.off_sp,
+            st.off_d] == [plan.offsets[k] for k in scan.PLANES]
+
+
+def test_the_rule_takes_a_cluster_at_the_north_star():
+    assert scan.cluster_plan(1, t=32, s=8, z=12).cluster == 1
+    assert scan.cluster_plan(5000, t=32, s=8, z=12).cluster >= 2
+    assert scan.cluster_plan(16384, t=32, s=8, z=12).cluster == 16
+    assert scan.allowed_clusters(1) == (1,)
+    assert scan.allowed_clusters(5000) == scan.CLUSTER_SIZES
+    # The rule's table, at its edges.
+    for (bound, c), prev in zip(scan.RULE, (0,) + tuple(
+            b for b, _ in scan.RULE)):
+        assert scan.cluster_plan(bound, t=32, s=8, z=12).cluster == c
+        assert scan.cluster_plan(prev + 1, t=32, s=8, z=12).cluster == c
+    assert scan.RULE[-1][0] == scan.MAX_NODES
+
+
+@pytest.mark.parametrize("n", [1, 31, 64, 320, 640, 641, 1000, 1025, 2048,
+                               2049, 5000, 16384])
+def test_the_rule_runs_one_node_per_thread_at_an_allowed_cluster(n):
+    """Whatever N, the rule's cluster leaves no CTA without nodes and
+    gives each thread one node (K = 1, the instantiation the rule runs;
+    the others serve the checks' forced cluster sizes)."""
+    plan = scan.cluster_plan(n, t=32, s=8, z=12)
+    assert plan.cluster in scan.allowed_clusters(n)
+    assert plan.k == 1
+    assert plan.threads >= plan.slice
+
+
+@pytest.mark.parametrize("n,t,s,cluster,resident", [
+    # The north star's chunk at the rule's C: every small plane fits.
+    (5000, 32, 8, None, scan.PLANES),
+    # T = 64 at N = 16,384: D does not fit at any cluster size.
+    (16384, 64, 8, 16, ("packed", "alloc", "node_zone", "sp_node")),
+    (16384, 64, 8, 8, ("packed", "alloc", "node_zone", "sp_node")),
+    # One CTA of 16,384 nodes holds only the zone ids.
+    (16384, 32, 8, 1, ("node_zone",)),
+    # S = 64 spread groups at 5,000 nodes and C = 8: D stays outside.
+    (5000, 64, 64, 8, ("packed", "alloc", "node_zone", "sp_node")),
+    (1, 64, 64, 1, scan.PLANES),
+])
+def test_the_byte_budget_chooses_the_resident_planes(n, t, s, cluster,
+                                                     resident):
+    plan = scan.cluster_plan(n, t=t, s=s, z=12, cluster=cluster)
+    assert plan.resident == resident
+    assert plan.smem <= scan.SMEM_LIMIT
+    # A plane the budget skipped would not have fitted where it stood.
+    used = plan.off_ring + plan.stages * plan.stage_bytes
+    per_node = {"packed": 24, "alloc": 16, "node_zone": 4,
+                "sp_node": 4 * s, "d_plane": 4 * t}
+    for name in scan.PLANES:
+        need = -(-per_node[name] * plan.slice // 16) * 16
+        if name in resident:
+            assert plan.offsets[name] == used
+            used += need
+        else:
+            assert plan.offsets[name] == -1
+            assert used + need > scan.SMEM_LIMIT
+
+
+def test_a_plan_without_spread_or_templates_keeps_no_such_plane():
+    plan = scan.cluster_plan(5000)
+    assert plan.resident == ("packed", "alloc")
+    assert plan.slot_words == scan.SLOT_HEAD
+
+
+@pytest.mark.parametrize("cluster", [0, 3, 32, -8, True, 8.0])
+def test_cluster_argument_outside_the_sizes_is_refused(cluster):
+    before = scan.scan_chunk.launches
+    with pytest.raises(ValueError, match="cluster"):
+        scan.scan_chunk(torch.zeros((4, 8)), **_args(), cluster=cluster)
+    assert scan.scan_chunk.launches == before
+
+
+def test_a_forced_route_reaches_the_wrapper_with_its_cluster_size():
+    """A ``kernel@C`` route of the checks reaches the solver as
+    ``cluster=C``: C is checked by the plan, a valid C stops only at the
+    CPU tensors, without launching, and a malformed route is refused by
+    name."""
+    from kubernetes_tpu_torch.perf import scan_check
+    case = scan_check.case("N=31", "cpu")
+    before = scan.scan_chunk.launches
+    for route in ("kernel@x", "kernel@", "steps@2", "kernels"):
+        with pytest.raises(ValueError, match="is not steps, kernel"):
+            scan_check.run_routes(case, ("steps", route))
+    with pytest.raises(ValueError, match="cluster must be one of"):
+        scan_check.run_routes(case, ("steps", "kernel@3"))
+    with pytest.raises(ValueError, match="without nodes"):
+        scan_check.run_routes(case, ("steps", "kernel@8"))
+    for route in ("kernel@2", "kernel@*"):
+        with pytest.raises(ValueError, match="takes CUDA tensors"):
+            scan_check.run_routes(case, ("steps", route))
+    assert scan.scan_chunk.launches == before
+
+
+def test_cluster_argument_is_checked_against_n_and_refuses_cpu_tensors():
+    before = scan.scan_chunk.launches
+    # N = 8 leaves CTAs without nodes at C = 2 and above.
+    for cluster in (2, 4, 8, 16):
+        with pytest.raises(ValueError, match="without nodes"):
+            scan.scan_chunk(torch.zeros((4, 8)), **_args(), cluster=cluster)
+    with pytest.raises(ValueError, match="CUDA"):
+        scan.scan_chunk(torch.zeros((4, 8)), **_args(), cluster=1)
+    n = 1025
+    for cluster in scan.allowed_clusters(n):
+        with pytest.raises(ValueError, match="CUDA"):
+            scan.scan_chunk(torch.zeros((4, n)), **_args(n=n),
+                            cluster=cluster)
+    assert scan.scan_chunk.launches == before
 
 
 @pytest.mark.parametrize("policy", ["default", "f16"])
@@ -468,3 +659,12 @@ def test_a_library_laid_out_otherwise_is_refused(monkeypatch):
     with pytest.raises(RuntimeError, match="ctypes mirror"):
         scan._library()
 
+
+
+@pytest.mark.parametrize("cut", sorted(scan_ablation._CUTS))
+def test_every_ablation_cut_applies_to_the_kernel_source(cut):
+    """Each of ``perf/scan_ablation.py``'s cuts finds its anchor text in
+    ``csrc/scan.cu`` exactly once, so the ablation still builds."""
+    src = scan_ablation._SCAN.read_text()
+    out = scan_ablation.variant_source(src, (cut,))
+    assert out != src

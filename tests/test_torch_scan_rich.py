@@ -84,7 +84,7 @@ def _families(solver, tb, tc, flags, monkeypatch) -> set:
     seen = {}
 
     def capture(self, b, c, last, mask, score, carry, has_bias, fams,
-                prios, route=None):
+                prios, route=None, cluster=None):
         seen["fams"] = fams
         raise StopIteration
 
