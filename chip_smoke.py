@@ -107,13 +107,31 @@ fails the run with a non-zero exit:
    host: 0 of each allowed); a second drain split into ``_compile``,
    the hoist, the term lists, the scan and the readback; the term axes;
    and about 200 sampled decisions against the oracle (``perf/parity``,
-   at least 99% agreement).
+   at least 99% agreement);
+17. the daemon over the wire: (a) 5,000 ``mixed`` nodes and 4,096 pods
+   created in ``python -m kubernetes_tpu_torch.apiserver`` before the
+   daemon starts; ``ConfigFactory(url, device="cuda")`` binds every pod
+   as a ``MemStore`` daemon on the card does (pod for pod), with the
+   scan launches of each; (b) the north star over HTTP: the native
+   apiserver built by ``apiserver/native.py`` (a failed build fails the
+   phase), 5,000 nodes, the daemon warmed, then 4 creator threads POST
+   30,000 pods in pre-serialised 1,000-pod List bodies; the clock runs
+   from the first POST to the last bind, once with the stream of
+   4,096-pod chunks and a 20 ms formation deadline and once on the
+   one-shot route with a 3,000 ms one; wall, pods/s, create time,
+   drains, launches, the stage split, bind requests and 409s, and 0
+   unbound pods, 0 nodes over capacity and 0 pods whose nodeName
+   changed after their first bind; (c) the apiserver binary and
+   ``python -m kubernetes_tpu_torch.scheduler --api-server URL
+   --leader-elect`` as processes: 2,048 pods onto 1,000 nodes bind,
+   /configz says cuda, the lease names the daemon, SIGTERM exits both
+   with 0.
 
 Phase 2b includes the f32 route of the joint repair and topology spread:
 a non-integral score bias and an extra mask with all-false rows.  It
 prints one ``{"kernels": [...]}`` line (with each kernel's launches on
 its phase's path, in the two daemon runs of phase 9 and on the paths of
-phases 13-16), then the card line, and last ``{"ok": true, "device":
+phases 13-17), then the card line, and last ``{"ok": true, "device":
 {...}}``.
 """
 
@@ -2038,6 +2056,598 @@ def phase_rich(nodes: int, pods: int, chunk: int, card: str) -> dict:
             "agreement_pct": rec["decision_agreement_pct"]}
 
 
+# -- the daemon over the wire (phase 17) --------------------------------------
+
+LIST_ITEMS = 1000  # items per v1 List body, as the reference's rig posts
+
+
+def wire_request(base: str, method: str, path: str, body: bytes = b"",
+                 timeout: float = 120.0) -> tuple[int, bytes]:
+    """One HTTP exchange on a fresh connection: (status, body)."""
+    import http.client
+    host, _, port = base.rpartition("/")[2].partition(":")
+    c = http.client.HTTPConnection(host, int(port), timeout=timeout)
+    try:
+        c.request(method, path, body or None,
+                  {"Content-Type": "application/json"} if body else {})
+        r = c.getresponse()
+        return r.status, r.read()
+    finally:
+        c.close()
+
+
+class Child:
+    """A child process stopped by PID, whose stderr a thread drains into
+    memory (a full pipe would stall the child)."""
+
+    def __init__(self, cmd: list, stdout=subprocess.DEVNULL):
+        self.proc = subprocess.Popen(cmd, stdout=stdout,
+                                     stderr=subprocess.PIPE, text=True)
+        self.pid = self.proc.pid
+        self.lines: list = []
+        self._drain = threading.Thread(target=self._read, daemon=True)
+        self._drain.start()
+
+    def _read(self) -> None:
+        for line in self.proc.stderr:
+            self.lines.append(line)
+
+    def wait_line(self, needle: str, seconds: float = 120.0) -> str:
+        t0 = time.perf_counter()
+        while True:
+            for line in list(self.lines):
+                if needle in line:
+                    return line
+            if self.proc.poll() is not None or \
+                    time.perf_counter() - t0 > seconds:
+                self.stop()
+                fail(f"{self.proc.args[:4]} printed no {needle!r}: "
+                     f"{self.tail()}")
+            time.sleep(0.05)
+
+    def tail(self) -> str:
+        return "".join(self.lines)[-2000:]
+
+    def stop(self, seconds: float = 60.0) -> int:
+        """SIGTERM by PID, SIGKILL past ``seconds``; the exit code."""
+        import signal
+        if self.proc.poll() is None:
+            self.proc.send_signal(signal.SIGTERM)
+            try:
+                self.proc.wait(timeout=seconds)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+                self.proc.wait()
+        self._drain.join(timeout=10)
+        if self.proc.stdout is not None:
+            self.proc.stdout.close()
+        return self.proc.returncode
+
+
+def wait_healthy(base: str, child: Child, seconds: float = 60.0) -> None:
+    t0 = time.perf_counter()
+    while True:
+        try:
+            if wire_request(base, "GET", "/healthz", timeout=5)[0] == 200:
+                return
+        except OSError:
+            pass
+        if child.proc.poll() is not None:
+            fail(f"the apiserver at {base} exited {child.proc.returncode}: "
+                 f"{child.tail()}")
+        if time.perf_counter() - t0 > seconds:
+            child.stop()
+            fail(f"the apiserver at {base} never answered /healthz")
+        time.sleep(0.05)
+
+
+def start_python_apiserver() -> tuple:
+    """``python -m kubernetes_tpu_torch.apiserver --port 0``; (child,
+    base URL) once it answers."""
+    child = Child([sys.executable, "-m", "kubernetes_tpu_torch.apiserver",
+                   "--port", "0"])
+    line = child.wait_line("listening on")
+    base = "http://" + line.rsplit(" ", 1)[1].strip()
+    wait_healthy(base, child)
+    return child, base
+
+
+def start_rig_apiserver() -> tuple:
+    """The wire rig's apiserver (``apiserver/native.py:server_command``:
+    the native binary unless ``KT_NATIVE_APISERVER=0``) on a port a
+    socket bound to port 0 was handed (the native binary cannot report
+    an ephemeral port); (child, base URL)."""
+    import socket
+
+    from kubernetes_tpu_torch.apiserver import native
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    child = Child(native.server_command(port))
+    base = f"http://127.0.0.1:{port}"
+    wait_healthy(base, child)
+    return child, base
+
+
+def list_bodies(objs: list) -> list:
+    """Pre-serialised v1 List bodies of LIST_ITEMS items: (bytes, n)."""
+    return [(json.dumps({"kind": "List",
+                         "items": objs[i:i + LIST_ITEMS]}).encode(),
+             len(objs[i:i + LIST_ITEMS]))
+            for i in range(0, len(objs), LIST_ITEMS)]
+
+
+def post_bodies(base: str, kind: str, bodies: list) -> None:
+    """POST each List body on one keep-alive connection; every item must
+    be created."""
+    import http.client
+    host, _, port = base.rpartition("/")[2].partition(":")
+    c = http.client.HTTPConnection(host, int(port), timeout=300)
+    try:
+        for body, n in bodies:
+            c.request("POST", f"/api/v1/{kind}", body,
+                      {"Content-Type": "application/json"})
+            r = c.getresponse()
+            got = r.read()
+            if r.status != 200 or json.loads(got).get("created") != n:
+                fail(f"POST {kind} List: {r.status} {got[:300]!r}")
+    finally:
+        c.close()
+
+
+def wire_list(base: str, kind: str) -> list:
+    status, body = wire_request(base, "GET", f"/api/v1/{kind}")
+    if status != 200:
+        fail(f"GET {kind}: {status}")
+    return json.loads(body)["items"]
+
+
+def pod_map(objs: list) -> dict:
+    return {f"{o['metadata'].get('namespace', 'default')}/"
+            f"{o['metadata']['name']}":
+            (o.get("spec") or {}).get("nodeName") or "" for o in objs}
+
+
+def wait_all_bound(read, n: int, seconds: float) -> dict:
+    """Poll ``read()`` (a pod -> node map) until ``n`` pods are bound."""
+    t0 = time.perf_counter()
+    while True:
+        got = read()
+        bound = sum(bool(v) for v in got.values())
+        if bound >= n:
+            return got
+        if time.perf_counter() - t0 > seconds:
+            fail(f"only {bound} of {n} pods bound within {seconds} s")
+        time.sleep(0.05)
+
+
+def phase_wire_parity(nodes: int, pods: int, card: str,
+                      dev: str = "cuda") -> dict:
+    """17a: the parity rig over the wire.  5,000 nodes and 4,096 pods
+    created in the port's Python apiserver before the daemon starts; the
+    port's daemon over HTTP must bind every pod as the daemon over a
+    MemStore does, both on the card."""
+    from kubernetes_tpu_torch.api import types as api
+    from kubernetes_tpu_torch.apiserver.memstore import MemStore
+    from kubernetes_tpu_torch.perf import synth
+    from kubernetes_tpu_torch.scheduler.factory import ConfigFactory
+
+    node_objs = [api.node_to_json(n) for n in
+                 synth.make_nodes(nodes, profile="mixed", n_zones=4)]
+    pod_objs = [api.pod_to_json(p) for p in
+                synth.make_pods(pods, profile="mixed", n_services=4)]
+    out = {}
+    store = MemStore()
+    for obj in node_objs:
+        store.create("nodes", obj)
+    for obj in pod_objs:
+        store.create("pods", obj)
+    zero_counts()
+    f = ConfigFactory(store, device=dev)
+    try:
+        t0 = time.perf_counter()
+        f.run()
+        local = wait_all_bound(lambda: pod_map(store.list("pods")[0]), pods,
+                               600)
+        out["memstore"] = {"secs": time.perf_counter() - t0,
+                           "counts": kernel_counts()}
+    finally:
+        f.stop()
+    proc, base = start_python_apiserver()
+    try:
+        post_bodies(base, "nodes", list_bodies(node_objs))
+        post_bodies(base, "pods", list_bodies(pod_objs))
+        zero_counts()
+        f = ConfigFactory(base, device=dev, qps=5000, burst=5000)
+        try:
+            t0 = time.perf_counter()
+            f.run()
+            wire = wait_all_bound(lambda: pod_map(wire_list(base, "pods")),
+                                  pods, 600)
+            out["wire"] = {"secs": time.perf_counter() - t0,
+                           "counts": kernel_counts()}
+        finally:
+            f.stop()
+    finally:
+        rc = proc.stop()
+    if rc != 0:
+        fail(f"17a: the port's apiserver exited {rc} on SIGTERM")
+    if wire != local:
+        diff = sorted(k for k in local if wire.get(k) != local[k])[:5]
+        fail(f"17a: the daemon over HTTP bound pods differently from the "
+             f"MemStore daemon: {diff}")
+    for side in ("memstore", "wire"):
+        if out[side]["counts"]["scan_chunk"] < 1:
+            fail(f"17a: the {side} daemon launched no scan kernel")
+    print(f"phase 17a: {card}: parity over the wire ({nodes} mixed nodes, "
+          f"{pods} pods created before the daemon, port's Python "
+          f"apiserver): every pod's nodeName == the MemStore daemon's on "
+          f"{dev}; run() to last bind: wire {out['wire']['secs']:.3f} s, "
+          f"MemStore {out['memstore']['secs']:.3f} s; launches wire "
+          f"{out['wire']['counts']}, MemStore {out['memstore']['counts']}")
+    return out
+
+
+def stage_snapshot() -> dict:
+    from kubernetes_tpu_torch.utils.metrics import STAGE_LATENCY
+    return {k[0]: (c.sum, c.count) for k, c in
+            STAGE_LATENCY.children().items()}
+
+
+def stage_split(before: dict, after: dict) -> dict:
+    """Seconds per daemon stage between two snapshots; ``compile`` is the
+    snapshot, the feature compile and the upload, ``scan`` the solve
+    stage (the launches and, one-shot, the wait for them)."""
+    def secs(*names):
+        return sum(after.get(n, (0, 0))[0] - before.get(n, (0, 0))[0]
+                   for n in names) / 1e6
+    return {"compile": secs("snapshot", "compile", "transfer"),
+            "scan": secs("solve"), "readback": secs("readback"),
+            "assume": secs("assume"), "bind": secs("bind")}
+
+
+class BindCounter:
+    """Counts the bind requests a client sends and the 409s the
+    apiserver answers them with (a wrapper around the client's two bind
+    verbs; measurement only)."""
+
+    def __init__(self, client):
+        self.requests = self.conflicts = 0
+        self._lock = threading.Lock()
+        chunk, single = client._bind_list_chunk, client.bind
+
+        def counted_chunk(bindings):
+            res = chunk(bindings)
+            with self._lock:
+                self.requests += 1
+                self.conflicts += sum(1 for r in res
+                                      if r is not None and r[0] == 409)
+            return res
+
+        def counted_single(*a, **k):
+            with self._lock:
+                self.requests += 1
+            try:
+                return single(*a, **k)
+            except Exception as err:
+                if type(err).__name__ == "ConflictError":
+                    with self._lock:
+                        self.conflicts += 1
+                raise
+        client._bind_list_chunk = counted_chunk
+        client.bind = counted_single
+
+
+# A watcher of the pods in its own process (so that it takes no
+# interpreter time from the daemon): each pod's first nodeName, and the
+# pods whose nodeName later changed.  It exits once it has seen every
+# pod bound and the stream has been quiet for a second, or on SIGTERM.
+BIND_WATCH = r"""
+import json, signal, sys, threading, time
+from kubernetes_tpu_torch.client.http import APIClient
+stop = threading.Event()
+signal.signal(signal.SIGTERM, lambda *_: stop.set())
+base, rv, n = sys.argv[1], int(sys.argv[2]), int(sys.argv[3])
+w = APIClient(base, qps=0).watch("pods", rv)
+print("watching", flush=True)
+first, changed, died, last = {}, set(), False, time.monotonic()
+while not stop.is_set():
+    ev = w.next(timeout=0.1)
+    if ev is None:
+        if len(first) >= n and time.monotonic() - last > 1.0:
+            break
+        continue
+    if ev.type == "ERROR":
+        died = True
+        break
+    last = time.monotonic()
+    node = (ev.object.get("spec") or {}).get("nodeName") or ""
+    if node and first.setdefault(ev.key, node) != node:
+        changed.add(ev.key)
+w.stop()
+print(json.dumps({"bound": len(first), "changed": sorted(changed),
+                  "died": died}), flush=True)
+"""
+
+
+def start_bind_watch(base: str, n: int) -> "Child":
+    from kubernetes_tpu_torch.client.http import APIClient
+    rv = APIClient(base, qps=0).list("pods")[1]
+    child = Child([sys.executable, "-c", BIND_WATCH, base, str(rv),
+                   str(n)], stdout=subprocess.PIPE)
+    if child.proc.stdout.readline().strip() != "watching":
+        child.stop()
+        fail(f"the bind watcher did not start: {child.tail()}")
+    return child
+
+
+def finish_bind_watch(child: "Child", seconds: float = 60.0) -> dict:
+    """The watcher's report once it has seen every pod bound."""
+    try:
+        child.proc.wait(timeout=seconds)
+    except subprocess.TimeoutExpired:
+        import signal
+        child.proc.send_signal(signal.SIGTERM)
+    out = child.proc.stdout.read()
+    child.stop()
+    try:
+        return json.loads(out.strip().splitlines()[-1])
+    except (ValueError, IndexError):
+        fail(f"the bind watcher reported nothing: {child.tail()}")
+
+
+def wire_over_capacity(node_objs: list, pod_objs: list) -> int:
+    """Nodes whose bound pods exceed their allocatable cpu, memory or pod
+    count, from the apiserver's own lists (exact units)."""
+    from kubernetes_tpu_torch.api import types as api
+    alloc = {}
+    for o in node_objs:
+        nd = api.node_from_json(o)
+        alloc[nd.name] = (nd.allocatable_milli_cpu, nd.allocatable_memory,
+                          nd.allocatable_pods)
+    used = {}
+    for o in pod_objs:
+        node = (o.get("spec") or {}).get("nodeName")
+        if not node:
+            continue
+        r = api.pod_from_json(o).resource_request()
+        cpu, mem, n = used.get(node, (0, 0, 0))
+        used[node] = (cpu + r.milli_cpu, mem + r.memory, n + 1)
+    return sum(1 for node, u in used.items()
+               if node not in alloc or
+               any(a > b for a, b in zip(u, alloc[node])))
+
+
+# The two settings of the wire north star.  The reference's rig chooses
+# by backend (kubernetes_tpu/perf/harness.py:520-540): off a TPU, the
+# stream of 4,096-pod chunks with a 20 ms formation deadline; on a TPU,
+# the whole burst with a 3,000 ms one.  "one-shot" is the second on the
+# port's one-shot route: a STREAM_THRESHOLD above any drain keeps every
+# drain of 4,096 pods or more one-shot while the bucket ladder carries
+# the whole-burst bucket that the former's target needs.
+WIRE_SETTINGS = ("stream", "one-shot")
+
+
+def wire_run(server: str, nodes: int, pods: int, setting: str, card: str,
+             dev: str = "cuda") -> dict:
+    """One run of the wire north star on a fresh native apiserver: the
+    daemon warmed before the clock, 4 creator threads POST the pods in
+    pre-serialised List bodies, the clock runs from the first POST to
+    the last bind."""
+    from kubernetes_tpu_torch.api import types as api
+    from kubernetes_tpu_torch.perf import synth
+    from kubernetes_tpu_torch.scheduler.factory import ConfigFactory
+    from kubernetes_tpu_torch.utils import metrics
+
+    proc, base = start_rig_apiserver()
+    factory = watch = None
+    try:
+        node_objs = [api.node_to_json(n) for n in
+                     synth.make_nodes(nodes, profile="mixed", n_zones=4)]
+        post_bodies(base, "nodes", list_bodies(node_objs))
+        factory = ConfigFactory(base, device=dev, qps=5000, burst=5000)
+        factory.run()
+        daemon = factory.daemon
+        whole = -(-pods // 2048) * 2048
+        if setting == "stream":
+            daemon.STREAM_THRESHOLD = 1
+            daemon.stream_chunk = min(4096, whole)
+            deadline_ms = 20.0
+        else:
+            daemon.STREAM_THRESHOLD = 1 << 40
+            daemon.stream_chunk = whole
+            deadline_ms = 3000.0
+        daemon.pipeline.former.deadline_s = deadline_ms / 1e3
+        daemon.pipeline.former._target = daemon.stream_chunk_size()
+        t_warm = time.perf_counter()
+        plist = synth.make_pods(pods, profile="mixed", n_services=4)
+        factory.algorithm._compile(plist)
+        daemon.prewarm(sample_pods=synth.make_pods(
+            min(pods, 2 * daemon.stream_chunk_size()), profile="mixed",
+            n_services=4, name_prefix="warm"))
+        warm_s = time.perf_counter() - t_warm
+        bodies = list_bodies([api.pod_to_json(p) for p in plist])
+        binds = BindCounter(factory.store)
+        watch = start_bind_watch(base, pods)
+        stages0 = stage_snapshot()
+        drains0 = metrics.BATCH_FORMATION_LATENCY.count
+        forming0 = metrics.BATCH_FORMATION_LATENCY.sum
+        decode0 = metrics.WATCH_DECODE_SECONDS.labels(kind="pods").value
+        bound0 = daemon.config.metrics.binding_latency.count
+        shards = [bodies[i::4] for i in range(4)]
+        errors: list = []
+
+        def create(shard):
+            try:
+                post_bodies(base, "pods", shard)
+            except SystemExit as err:
+                errors.append(str(err))
+        threads = [threading.Thread(target=create, args=(s,), daemon=True)
+                   for s in shards]
+        zero_counts()
+        start = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        create_s = time.perf_counter() - start
+        if errors:
+            fail(f"17b {setting}: pod creation failed: {errors[0]}")
+        while daemon.config.metrics.binding_latency.count - bound0 < pods:
+            if time.perf_counter() - start > 600:
+                fail(f"17b {setting}: only "
+                     f"{daemon.config.metrics.binding_latency.count - bound0}"
+                     f" of {pods} pods bound in 600 s")
+            time.sleep(0.005)
+        wall = time.perf_counter() - start
+        daemon.wait_for_binds()
+        counts = kernel_counts()
+        split = stage_split(stages0, stage_snapshot())
+        drains = metrics.BATCH_FORMATION_LATENCY.count - drains0
+        forming = (metrics.BATCH_FORMATION_LATENCY.sum - forming0) / 1e6
+        decode = metrics.WATCH_DECODE_SECONDS.labels(
+            kind="pods").value - decode0
+        seen, watch = finish_bind_watch(watch), None
+        pod_objs = wire_list(base, "pods")
+        unbound = sum(1 for o in pod_objs
+                      if not (o.get("spec") or {}).get("nodeName"))
+        over = wire_over_capacity(wire_list(base, "nodes"), pod_objs)
+        changed = len(seen["changed"])
+        if unbound or over or changed or len(pod_objs) != pods or \
+                seen["died"] or seen["bound"] != pods:
+            fail(f"17b {setting}: {len(pod_objs)} pods listed, {unbound} "
+                 f"not bound, {over} nodes over capacity, {changed} pods "
+                 f"whose nodeName changed after their first bind; the "
+                 f"watch saw {seen['bound']} bound (stream died: "
+                 f"{seen['died']})")
+        if counts["scan_chunk"] < 1:
+            fail(f"17b {setting}: no scan launch")
+        run = {"wall": wall, "pods_per_s": pods / wall, "create": create_s,
+               "warm": warm_s, "drains": drains, "forming": forming,
+               "decode": decode, "counts": counts,
+               "split": split, "bind_requests": binds.requests,
+               "bind_409": binds.conflicts}
+        print(f"phase 17b: {card}: wire north star, {setting} "
+              f"(deadline {deadline_ms:g} ms, chunk "
+              f"{daemon.stream_chunk_size()}): {pods} of {pods} pods bound "
+              f"onto {nodes} nodes through the {server} in {wall:.3f} s "
+              f"wall (first POST to last bind), "
+              f"{pods / wall:.1f} pods/s; create {create_s:.3f} s; warm "
+              f"{warm_s:.3f} s; {drains} drains, {forming:.3f} s forming "
+              f"them; pods watch decode {decode:.3f} s; launches {counts}; "
+              f"split "
+              f"compile {split['compile']:.3f} s, scan "
+              f"{split['scan']:.3f} s, readback {split['readback']:.3f} s, "
+              f"assume {split['assume']:.3f} s, bind {split['bind']:.3f} s; "
+              f"{binds.requests} bind requests, {binds.conflicts} bind "
+              f"409s; 0 unbound, 0 nodes over capacity, 0 nodeName "
+              f"changes")
+        return run
+    finally:
+        if watch is not None:
+            watch.stop()
+        if factory is not None:
+            factory.stop()
+        proc.stop()
+
+
+def phase_wire_north_star(nodes: int, pods: int, card: str,
+                          dev: str = "cuda") -> dict:
+    """17b: the north star over the wire, once per setting, through the
+    native apiserver built by the port's native.py (a failed build fails
+    the phase; nothing falls back to the Python server)."""
+    from kubernetes_tpu_torch.apiserver import native
+    from kubernetes_tpu_torch.utils import knobs
+    server = "Python apiserver (KT_NATIVE_APISERVER=0)"
+    if knobs.get_bool("KT_NATIVE_APISERVER"):
+        t0 = time.perf_counter()
+        try:
+            server = f"native apiserver {native.build()}"
+        except native.NativeBuildError as err:
+            fail(f"17b: the native apiserver did not build: {err}")
+        print(f"phase 17b: {server} ready in "
+              f"{time.perf_counter() - t0:.3f} s")
+    runs = {s: wire_run(server, nodes, pods, s, card, dev)
+            for s in WIRE_SETTINGS}
+    a, b = runs["stream"]["wall"], runs["one-shot"]["wall"]
+    faster = "one-shot" if b < a else "stream"
+    print(f"phase 17b: {card}: {faster} was faster: stream {a:.3f} s, "
+          f"one-shot {b:.3f} s ({abs(a - b) / max(a, b) * 100:.1f}% less "
+          f"wall)")
+    return runs
+
+
+def phase_wire_binaries(nodes: int, pods: int, card: str,
+                        dev: str = "cuda") -> None:
+    """17c: ``python -m kubernetes_tpu_torch.apiserver`` and ``python -m
+    kubernetes_tpu_torch.scheduler --api-server URL --leader-elect`` as
+    processes: every pod binds, /configz says the device, the lease
+    names the daemon, SIGTERM exits both with 0."""
+    from kubernetes_tpu_torch.api import types as api
+    from kubernetes_tpu_torch.perf import synth
+    from kubernetes_tpu_torch.utils.leaderelection import (
+        LEADER_ANNOTATION_KEY, LeaderElectionRecord)
+
+    api_proc, base = start_python_apiserver()
+    sched = None
+    try:
+        post_bodies(base, "nodes", list_bodies(
+            [api.node_to_json(n) for n in
+             synth.make_nodes(nodes, profile="mixed", n_zones=4)]))
+        cmd = [sys.executable, "-m", "kubernetes_tpu_torch.scheduler",
+               "--api-server", base, "--port", "0", "--leader-elect",
+               "--leader-elect-lease-duration", "4",
+               "--leader-elect-renew-deadline", "3",
+               "--leader-elect-retry-period", "0.5",
+               "--kube-api-qps", "5000", "--kube-api-burst", "5000"]
+        if dev != "cuda":
+            cmd += ["--device", dev]
+        t0 = time.perf_counter()
+        sched = Child(cmd, stdout=subprocess.PIPE)
+        port = json.loads(sched.proc.stdout.readline() or "{}").get("port")
+        if port is None:
+            sched.stop()
+            fail(f"17c: the daemon binary did not start: {sched.tail()}")
+        post_bodies(base, "pods", list_bodies(
+            [api.pod_to_json(p) for p in
+             synth.make_pods(pods, profile="mixed", n_services=4)]))
+        wait_all_bound(lambda: pod_map(wire_list(base, "pods")), pods, 600)
+        secs = time.perf_counter() - t0
+        status, body = wire_request(f"http://127.0.0.1:{port}", "GET",
+                                    "/configz")
+        cfg = json.loads(body)
+        if status != 200 or cfg["device"] != dev or \
+                cfg["apiServer"] != base or not cfg["leaderElect"]:
+            fail(f"17c: /configz {status} {body[:300]!r}")
+        status, body = wire_request(
+            base, "GET",
+            "/api/v1/namespaces/kube-system/endpoints/kube-scheduler")
+        record = LeaderElectionRecord.from_json(json.loads(body)[
+            "metadata"]["annotations"][LEADER_ANNOTATION_KEY])
+        if not record.holder_identity.endswith(f"-{sched.pid}"):
+            fail(f"17c: the lease names {record.holder_identity!r}, not "
+                 f"the daemon (pid {sched.pid})")
+        rc = sched.stop(120)
+        if rc != 0:
+            fail(f"17c: the daemon binary exited {rc} on SIGTERM: "
+                 f"{sched.tail()}")
+        sched = None
+    finally:
+        if sched is not None:
+            sched.stop()
+        api_rc = api_proc.stop()
+    if api_rc != 0:
+        fail(f"17c: the apiserver binary exited {api_rc} on SIGTERM: "
+             f"{api_proc.tail()}")
+    print(f"phase 17c: {card if dev == 'cuda' else dev}: python -m "
+          f"kubernetes_tpu_torch.apiserver and python -m "
+          f"kubernetes_tpu_torch.scheduler --api-server --leader-elect "
+          f"(--device {dev}): {pods} pods onto {nodes} nodes bound "
+          f"{secs:.3f} s after the daemon started; /configz device {dev}; "
+          f"the lease names {record.holder_identity}; both exited 0 on "
+          f"SIGTERM")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--nodes", type=int, default=5000)
@@ -2053,6 +2663,8 @@ def main() -> int:
     ap.add_argument("--factory-nodes", type=int, default=5000)
     ap.add_argument("--factory-pods", type=int, default=4096)
     ap.add_argument("--topology-pods", type=int, default=4096)
+    ap.add_argument("--binary-nodes", type=int, default=1000)
+    ap.add_argument("--binary-pods", type=int, default=2048)
     ap.add_argument("--kernels-only", action="store_true",
                     help="build and run phases 2, 2b and 6 only; prints "
                          "no result lines")
@@ -2096,6 +2708,13 @@ def main() -> int:
     joint = phase_joint(args.nodes, args.pods, card)
     harness = phase_harness(card)
     rich16 = phase_rich(args.nodes, args.pods, CHUNK, card)
+    wire17 = phase_wire_parity(args.parity_nodes, args.parity_pods, card)
+    wire17.update(phase_wire_north_star(args.nodes, args.pods, card))
+    phase_wire_binaries(args.binary_nodes, args.binary_pods, card)
+
+    def wire_launches(kernel: str) -> dict:
+        return {f"wire_{run}": wire17[run]["counts"][kernel]
+                for run in ("memstore", "wire", "stream", "one-shot")}
 
     kernels_line = [{
         "name": "select_rows",
@@ -2111,7 +2730,8 @@ def main() -> int:
                             for run in ("a", "b")},
         "launches_by_path": {"topology": 0, "joint": 0,
                             "rich_drain": rich["select_rows"],
-                            "parity_rich": 0, "rich_north_star": 0},
+                            "parity_rich": 0, "rich_north_star": 0,
+                            **wire_launches("select_rows")},
         "max_abs_err": kstats["max_abs_err"],
         "ms": kstats["ms"],
         "plain_ms": kstats["plain_ms"],
@@ -2131,7 +2751,8 @@ def main() -> int:
                             "joint": joint["quality"] + joint["north"],
                             "rich_drain": rich["scan_chunk"],
                             "parity_rich": harness["parity"],
-                            "rich_north_star": rich16["launches"]},
+                            "rich_north_star": rich16["launches"],
+                            **wire_launches("scan_chunk")},
         "max_abs_err": sstats["max_abs_err"],
         "ms": sstats["ms"],
         "plain_ms": sstats["plain_ms"],
@@ -2155,7 +2776,8 @@ def main() -> int:
         "daemon_launches": {run: daemon[run]["counts"]["select_hosts"]
                             for run in ("a", "b")},
         "launches_by_path": {"topology": topo["single"], "joint": 0,
-                            "parity_rich": 0},
+                            "parity_rich": 0,
+                            **wire_launches("select_hosts")},
         "max_abs_err": hstats["max_abs_err"],
         "ms": hstats["ms"],
         "kernel_ms": hstats["kernel_ms"],

@@ -1,6 +1,15 @@
-"""Client machinery (pkg/client analogue)."""
+"""Client machinery (pkg/client analogue): the HTTP client of the
+apiserver surface (``client/http.py``), the transport-agnostic
+reflector (``client/reflector.py``) and a CAS update over either
+transport."""
 
 from __future__ import annotations
+
+from kubernetes_tpu_torch.client.http import (APIClient, APIError,
+                                              HTTPWatcher, TLSConfig)
+
+__all__ = ["APIClient", "APIError", "HTTPWatcher", "TLSConfig",
+           "cas_update"]
 
 
 def cas_update(source, kind: str, obj: dict) -> dict:

@@ -4,24 +4,29 @@
 counterpart of ``python -m kubernetes_tpu.scheduler`` (itself the
 analogue of plugin/cmd/kube-scheduler, app/server.go:71-183): the flag
 surface (options/options.go:55-77) plus ``--device``, the policy-file
-load (server.go:165-183), feature gates and ``--config``, an in-process
-``MemStore`` control plane, and an HTTP mux serving /healthz, /metrics
-and /configz (server.go:93-109) with the flight recorder, the span ring
-and /debug/vars.  The telemetry and profiler routes answer 501.
+load (server.go:165-183), feature gates and ``--config``, an HTTP mux
+serving /healthz, /metrics and /configz (server.go:93-109) with the
+flight recorder, the span ring and /debug/vars, and an optional
+leader-election-wrapped run on an Endpoints annotation lease
+(server.go:142-159).  ``--api-server URL`` schedules a separate
+apiserver over HTTP list/watch/bind; without it the daemon runs against
+a fresh in-process ``MemStore``, exposed over HTTP with
+``--serve-apiserver PORT`` (the all-in-one dev mode).  The telemetry and
+profiler routes answer 501.
 
 ``--device`` defaults to ``cuda`` and the daemon exits with an error
-without a card; ``--device cpu`` must be asked for.  ``--api-server``
-(the HTTP client slice), ``--serve-apiserver`` (the apiserver slice),
-``--leader-elect`` (the leader-election slice) and ``--profile-dir``
-(the profiler slice) exit with an error naming the slice that brings
-them.
+without a card; ``--device cpu`` must be asked for.  ``--profile-dir``
+(the profiler slice) exits with an error naming the slice that brings
+it.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import signal
+import socket
 import sys
 import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
@@ -32,6 +37,8 @@ from kubernetes_tpu_torch.api.policy import (cluster_autoscaler_provider,
                                              policy_from_json)
 from kubernetes_tpu_torch.scheduler.factory import ConfigFactory
 from kubernetes_tpu_torch.utils import threadreg
+from kubernetes_tpu_torch.utils.leaderelection import (APIResourceLock,
+                                                       LeaderElector)
 from kubernetes_tpu_torch.utils.logging import configure, get_logger
 
 log = get_logger("scheduler")
@@ -40,9 +47,6 @@ DEFAULT_PORT = 10251  # options/options.go:49 SchedulerDefaultPort
 
 # Flags of the reference binary that later slices bring: flag -> slice.
 NOT_PORTED_FLAGS = {
-    "api_server": ("--api-server", "HTTP client"),
-    "serve_apiserver": ("--serve-apiserver", "apiserver"),
-    "leader_elect": ("--leader-elect", "leader election"),
     "profile_dir": ("--profile-dir", "profiler"),
 }
 
@@ -50,19 +54,19 @@ NOT_PORTED_FLAGS = {
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="kube-scheduler (kubernetes_tpu_torch)",
-        description="Batched scheduler daemon on PyTorch; schedules the "
-                    "pods of an in-process store and binds them "
-                    "(plugin/cmd/kube-scheduler analogue)")
+        description="Batched scheduler daemon on PyTorch; watches an "
+                    "apiserver and binds pods (plugin/cmd/kube-scheduler "
+                    "analogue)")
     p.add_argument("--device", default="cuda",
                    help="torch device of the engine (default cuda; the "
                         "daemon exits without a card unless 'cpu' is "
                         "asked for)")
     p.add_argument("--api-server", default="",
-                   help="apiserver base URL (not ported: HTTP client "
-                        "slice); empty runs an in-process MemStore")
+                   help="apiserver base URL; empty runs an in-process "
+                        "MemStore control plane")
     p.add_argument("--serve-apiserver", type=int, default=0, metavar="PORT",
-                   help="expose the in-process store over HTTP (not "
-                        "ported: apiserver slice)")
+                   help="with no --api-server: also expose the in-process "
+                        "store over HTTP on this port (0 = off)")
     p.add_argument("--port", type=int, default=DEFAULT_PORT,
                    help="healthz/metrics/configz port (0 = ephemeral)")
     p.add_argument("--algorithm-provider", default="DefaultProvider",
@@ -72,10 +76,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--scheduler-name", default=api.DEFAULT_SCHEDULER_NAME)
     p.add_argument("--kube-api-qps", type=float, default=50.0)
     p.add_argument("--kube-api-burst", type=int, default=100)
+    p.add_argument("--kube-api-token", default="",
+                   help="bearer token for an authenticated apiserver")
+    from kubernetes_tpu_torch.client.http import TLSConfig
+    TLSConfig.add_flags(p)
     p.add_argument("--hard-pod-affinity-symmetric-weight", type=int,
                    default=None)
-    p.add_argument("--leader-elect", action="store_true", default=False,
-                   help="not ported: leader-election slice")
+    p.add_argument("--leader-elect", action="store_true", default=False)
     p.add_argument("--leader-elect-lease-duration", type=float, default=15.0)
     p.add_argument("--leader-elect-renew-deadline", type=float, default=10.0)
     p.add_argument("--leader-elect-retry-period", type=float, default=2.0)
@@ -206,6 +213,11 @@ def debug_vars(factory: ConfigFactory) -> dict:
         "postPrewarmCompiles": POST_PREWARM_COMPILES.value,
         "invariantViolations": CACHE_INVARIANT_VIOLATIONS.value,
         "lastRecovery": factory.last_recovery,
+        # Client-side backpressure against a shedding apiserver
+        # (utils/flowcontrol.py): the AIMD bind window and the retry
+        # budget's saturation; null when the store is in-process.
+        "overload": (factory.store.flow_report()
+                     if hasattr(factory.store, "flow_report") else None),
         "cachedPods": cache.pod_count(),
         "cachedNodes": len(cache.nodes()),
         "cacheStats": cache.stats,
@@ -271,7 +283,7 @@ def main(argv=None) -> int:
     featuregate.set_default(gates)
     policy = load_policy(opts)
     configz = {
-        "apiServer": "(in-process)",
+        "apiServer": opts.api_server or "(in-process)",
         "device": opts.device,
         "algorithmProvider": opts.algorithm_provider,
         "policyConfigFile": opts.policy_config_file,
@@ -284,10 +296,27 @@ def main(argv=None) -> int:
         "predicates": [s.name for s in policy.predicates],
         "priorities": [[s.name, s.weight] for s in policy.priorities],
     }
-    from kubernetes_tpu_torch.apiserver.memstore import MemStore
+    if opts.api_server:
+        from kubernetes_tpu_torch.client.http import APIClient, TLSConfig
+        source = APIClient(opts.api_server, qps=opts.kube_api_qps,
+                           burst=opts.kube_api_burst,
+                           token=opts.kube_api_token,
+                           tls=TLSConfig.from_opts(opts))
+    else:
+        from kubernetes_tpu_torch.apiserver.memstore import MemStore
+        source = MemStore()
+        if opts.serve_apiserver:
+            from kubernetes_tpu_torch.apiserver.server import serve
+            serve(source, port=opts.serve_apiserver)
+            log.info("in-process apiserver on :%d", opts.serve_apiserver)
+
+    # source is a ready APIClient (credentials + TLS) or a MemStore;
+    # qps/burst still feed the factory's event-sink rate bucket.
     try:
-        factory = ConfigFactory(MemStore(), policy=policy,
+        factory = ConfigFactory(source, policy=policy,
                                 scheduler_name=opts.scheduler_name,
+                                qps=opts.kube_api_qps,
+                                burst=opts.kube_api_burst,
                                 device=opts.device)
     except RuntimeError as err:
         raise SystemExit(f"--device {opts.device}: {err}")
@@ -304,9 +333,30 @@ def main(argv=None) -> int:
 
     signal.signal(signal.SIGTERM, shutdown)
     signal.signal(signal.SIGINT, shutdown)
-    factory.run()
-    log.info("scheduler loop running on %s (no leader election)",
-             factory.algorithm.device)
+    if opts.leader_elect:
+        identity = f"{socket.gethostname()}-{os.getpid()}"
+        lock = APIResourceLock(factory.store) if opts.api_server else None
+        if lock is None:
+            log.warning("--leader-elect without --api-server: using an "
+                        "in-process lock (single candidate)")
+            from kubernetes_tpu_torch.utils.leaderelection import \
+                InMemoryLock
+            lock = InMemoryLock()
+        elector = LeaderElector(
+            lock=lock, identity=identity,
+            lease_duration=opts.leader_elect_lease_duration,
+            renew_deadline=opts.leader_elect_renew_deadline,
+            retry_period=opts.leader_elect_retry_period,
+            on_started_leading=lambda: (log.info("leading as %s", identity),
+                                        factory.run()),
+            on_stopped_leading=lambda: (log.warning("lost lease; exiting"),
+                                        stop.set()))
+        elector.run()
+        log.info("leader election: candidate %s", identity)
+    else:
+        factory.run()
+        log.info("scheduler loop running on %s (no leader election)",
+                 factory.algorithm.device)
     stop.wait()
     factory.stop()
     mux.shutdown()

@@ -8,8 +8,11 @@ atomic conflict detector for optimistic concurrency.
 ``Binder`` is the protocol; ``InMemoryBinder`` reproduces the CAS semantics
 for the integration and perf rigs (the in-process-apiserver analogue).
 The store binder of the daemon over a ``MemStore`` is
-``scheduler/factory.py:MemStoreBinder``.  ``APIClientBinder`` (the wire
-binder over the HTTP client) waits for the HTTP client slice.
+``scheduler/factory.py:MemStoreBinder``, and ``APIClientBinder`` is the
+daemon's wire binder: whole solved chunks ride the batch bindings
+subresource through ``APIClient.bind_list``, which pipelines the chunk
+POSTs over persistent connections (client/http.py) — the bind side of
+the overlapped solve/bind pipeline.
 """
 
 from __future__ import annotations
@@ -81,11 +84,89 @@ class InMemoryBinder:
 
 
 class APIClientBinder:
-    """The wire binder (batch bindings over the HTTP client): not in this
-    package yet."""
+    """Binder over the wire (factory.go:576-587 POST bindings).
 
-    def __init__(self, client=None):
-        raise NotImplementedError(
-            "APIClientBinder is not ported to kubernetes_tpu_torch yet "
-            "(HTTP client slice); bind through a MemStore or "
-            "InMemoryBinder")
+    The batched path rides the batch-bind subresource: the engine decides
+    in multi-thousand-pod chunks, so each chunk becomes a handful of
+    pipelined bulk requests whose per-pod CAS results map back to
+    (pod, err) failures — measured at density rates, per-pod POSTs
+    through 16 threads were the wire bottleneck (98 % of engine
+    throughput died at the process boundary).  Request chunking and the
+    persistent-connection pipelining live in ``APIClient.bind_list``; a
+    transport failure falls back to per-pod binds through a persistent
+    thread pool so partial progress survives a flaky connection."""
+
+    _POOL = 16  # fallback path concurrency (one goroutine per bind)
+
+    def __init__(self, client):
+        self.client = client
+        self._pool = None
+
+    def bind(self, pod: api.Pod, node_name: str) -> None:
+        self.client.bind(pod.namespace, pod.name, node_name)
+
+    def evict(self, pod: api.Pod) -> None:
+        """Preemption eviction over the wire: DELETE the victim pod (the
+        reference's preemption deletes victims through the apiserver; the
+        watch then confirms the removal cluster-wide)."""
+        self.client.delete("pods", pod.key)
+
+    def _bind_one(self, item):
+        pod, dest = item
+        try:
+            self.bind(pod, dest)
+            return None
+        except Exception as err:  # noqa: BLE001 — caller requeues
+            return (pod, err)
+
+    def bind_many(self, placed: list) -> list:
+        """Bind a batch; returns [(pod, err)] failures (the CAS conflicts
+        the batched drain forgets + requeues)."""
+        from kubernetes_tpu_torch.apiserver.memstore import ConflictError
+        from kubernetes_tpu_torch.client.http import APIError
+        from kubernetes_tpu_torch.utils.featuregate import DEFAULT_FEATURE_GATE
+        if not DEFAULT_FEATURE_GATE.enabled("BatchBindings"):
+            # Gated off: the reference's per-bind-goroutine wire behavior.
+            return self._bind_many_fallback(placed)
+        if len(placed) <= 2:
+            return [f for f in map(self._bind_one, placed) if f is not None]
+        try:
+            errors = self.client.bind_list(
+                [(pod.namespace, pod.name, dest) for pod, dest in placed])
+        except Exception:  # noqa: BLE001 — transport hiccup
+            return self._bind_many_fallback(placed)
+        if len(errors) != len(placed):
+            return self._bind_many_fallback(placed)
+        # Preserve the per-item status: only a 409 is a CAS conflict;
+        # wrapping a 404 (pod deleted mid-bind) as ConflictError would
+        # invert the conflict/failure metric split downstream.  One 409
+        # inside a pipelined chunk therefore requeues only that pod.
+        # Code 0 marks a chunk whose request never completed (transport
+        # fault mid-pipeline): re-bind ONLY those pods per-pod — the CAS
+        # makes the retry idempotent — leaving the other chunks' results
+        # untouched.
+        failures = []
+        retry = []
+        for (pod, dest), res in zip(placed, errors):
+            if res is None:
+                continue
+            code, err = res
+            if code == 0:
+                retry.append((pod, dest))
+            elif code == 409:
+                failures.append((pod, ConflictError(err)))
+            else:
+                failures.append((pod, APIError(code, err)))
+        if retry:
+            failures.extend(self._bind_many_fallback(retry))
+        return failures
+
+    def _bind_many_fallback(self, placed: list) -> list:
+        """Per-pod binds through the persistent pool — each worker keeps
+        its thread-local keep-alive connection across batches."""
+        if self._pool is None:
+            from concurrent.futures import ThreadPoolExecutor
+            self._pool = ThreadPoolExecutor(max_workers=self._POOL,
+                                            thread_name_prefix="binder")
+        return [f for f in self._pool.map(self._bind_one, placed)
+                if f is not None]

@@ -1,4 +1,4 @@
-"""Config factory: wire the scheduler daemon to a store
+"""Config factory: wire the scheduler daemon to an apiserver
 (factory.go:100-227, 387-469) — the standalone watch -> solve -> bind loop.
 
 Counterpart of ``kubernetes_tpu/scheduler/factory.py`` over the port's
@@ -13,10 +13,13 @@ daemon, the reference's informer layout (factory.go:128-149, 466-469):
 plus services/PV/PVC/RC/RS listers kept fresh from the same source, the
 CAS binder, and the 1 s assumed-pod TTL sweep (cache.go:31).
 
-The source is an in-process ``MemStore``.  What later slices bring each
-raises ``NotImplementedError`` naming its slice when it is asked for, and
-each is off by default: an HTTP apiserver source (``APIClient`` or a
-URL: the HTTP client slice), a shared ``solver_service`` and
+The apiserver source is an in-process ``MemStore`` or an HTTP base URL
+(or a ready ``APIClient``) — the real process boundary: every
+list/watch/bind/status write then goes over the wire through a
+QPS/Burst rate-limited client (factory.go:77-91), binds ride the batch
+bindings subresource and events a batch sink.  What later slices bring
+each raises ``NotImplementedError`` naming its slice when it is asked
+for, and each is off by default: a shared ``solver_service`` and
 ``KT_TENANTS`` (the tenancy slice), ``KT_HA_SHARDS > 0`` (the HA slice),
 ``KT_DEFRAG`` (the defrag slice) and ``KT_VERIFY_PERIOD > 0`` (the
 verifier slice).
@@ -25,7 +28,7 @@ verifier slice).
 from __future__ import annotations
 
 import threading
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 
@@ -33,13 +36,15 @@ from kubernetes_tpu_torch.api import types as api
 from kubernetes_tpu_torch.api.policy import Policy
 from kubernetes_tpu_torch.apiserver.memstore import MemStore
 from kubernetes_tpu_torch.cache.scheduler_cache import CLEANUP_PERIOD
+from kubernetes_tpu_torch.client.http import APIClient
 from kubernetes_tpu_torch.client.reflector import Reflector
 from kubernetes_tpu_torch.engine.generic_scheduler import (GenericScheduler,
                                                            Listers,
                                                            not_ported)
+from kubernetes_tpu_torch.scheduler.binder import APIClientBinder
 from kubernetes_tpu_torch.scheduler.scheduler import Scheduler, SchedulerConfig
 from kubernetes_tpu_torch.utils import knobs, threadreg
-from kubernetes_tpu_torch.utils.events import EventRecorder
+from kubernetes_tpu_torch.utils.events import EventRecorder, async_sink
 from kubernetes_tpu_torch.utils.logging import get_logger
 
 log = get_logger("factory")
@@ -60,7 +65,6 @@ class MemStoreBinder:
             self.store.delete("pods", pod.key)
         except KeyError:
             pass  # already gone (watch raced the eviction)
-
 
 
 def make_event_sink(source: Union[MemStore, APIClient]):
@@ -88,6 +92,22 @@ def make_event_sink(source: Union[MemStore, APIClient]):
     return sink
 
 
+def make_event_batch_sink(client: APIClient, qps: float, burst: int):
+    """Batch wire sink: one POST per drained queue (broadcaster-style
+    drop beyond the rate bucket, then a single batch create)."""
+    from kubernetes_tpu_torch.utils.flowcontrol import TokenBucketRateLimiter
+    single = make_event_sink(client)
+    bucket = TokenBucketRateLimiter(qps, burst)
+
+    def batch_sink(evs) -> None:
+        allowed = [ev for ev in evs if bucket.try_accept()]
+        if not allowed:
+            return
+        client.create_list("events",
+                           [single.event_json(ev) for ev in allowed])
+    return batch_sink
+
+
 def _is_terminated(obj: dict) -> bool:
     phase = (obj.get("status") or {}).get("phase", "")
     return phase in ("Succeeded", "Failed")
@@ -95,20 +115,24 @@ def _is_terminated(obj: dict) -> bool:
 
 class ConfigFactory:
     """NewConfigFactory + CreateFromProvider/CreateFromConfig
-    (factory.go:100, :251-344) over a ``MemStore``.  ``device`` is the
-    engine's device (``"cuda"`` by default; ``"cpu"`` must be asked
-    for)."""
+    (factory.go:100, :251-344).
 
-    def __init__(self, store: MemStore,
+    ``store`` is the apiserver source: a MemStore (in-process) or an HTTP
+    base URL string / APIClient (separate-process control plane).  QPS and
+    burst rate-limit the main client's verbs; events ride a second,
+    unthrottled client gated by a drop-on-saturation bucket, the
+    broadcaster's behavior under pressure (record/event.go).  ``device``
+    is the engine's device (``"cuda"`` by default; ``"cpu"`` must be
+    asked for)."""
+
+    def __init__(self, store: Union[MemStore, APIClient, str],
                  policy: Optional[Policy] = None,
                  scheduler_name: str = api.DEFAULT_SCHEDULER_NAME,
                  batched: bool = True,
-                 device: "str | torch.device | None" = "cuda",
+                 qps: float = 50.0, burst: int = 100, token: str = "",
+                 tls=None, device: "str | torch.device | None" = "cuda",
                  ha_shards: Optional[int] = None,
                  solver_service=None):
-        if not isinstance(store, MemStore):
-            raise not_ported("an HTTP apiserver source (APIClient or URL)",
-                             "HTTP client")
         if solver_service is not None:
             raise not_ported("the solver-service client mode", "tenancy")
         if (knobs.get_int("KT_HA_SHARDS") if ha_shards is None
@@ -117,18 +141,33 @@ class ConfigFactory:
         if knobs.get("KT_TENANTS"):
             raise not_ported("the multi-tenant solver service "
                              "(KT_TENANTS)", "tenancy")
+        if isinstance(store, str):
+            store = APIClient(store, qps=qps, burst=burst, token=token,
+                              tls=tls)
         self.store = store
         self.listers = Listers()
         self.algorithm = GenericScheduler(policy=policy,
                                           listers=self.listers,
                                           device=device)
+        if isinstance(store, APIClient):
+            binder = APIClientBinder(store)
+            events_client = store.clone(qps=0)
+            # The batch sink carries its own rate bucket (broadcaster-
+            # style drop beyond qps/burst, then one batch POST per drain).
+            recorder = EventRecorder(sink=async_sink(
+                None, batch_sink=make_event_batch_sink(events_client, qps,
+                                                       burst)))
+        else:
+            binder = MemStoreBinder(store)
+            recorder = EventRecorder(sink=None)
         self.daemon = Scheduler(SchedulerConfig(
-            algorithm=self.algorithm, binder=MemStoreBinder(store),
+            algorithm=self.algorithm, binder=binder,
             # Async binds, like the reference's per-bind goroutine
-            # (scheduler.go:122-153): the device scans the next chunk
-            # while a chunk's binds land.
+            # (scheduler.go:122-153): over a real wire a chunk's ~4k bind
+            # POSTs take seconds, and the card must be scanning the next
+            # chunk meanwhile, not idling behind them.
             scheduler_name=scheduler_name, async_bind=True,
-            recorder=EventRecorder(sink=None),
+            recorder=recorder,
             condition_updater=self._update_pod_condition))
         self.batched = batched
         self._reflectors: list[Reflector] = []
@@ -279,14 +318,19 @@ class ConfigFactory:
         conds.append({"type": "PodScheduled", "status": "False",
                       "reason": reason, "message": message})
         try:
-            # CAS on the version this update read: a condition write
-            # racing a concurrent bind (e.g. a replacement scheduler
-            # after this one was killed) must lose the CAS rather than
-            # clobber the bound spec.
-            self.store.update(
-                "pods", obj,
-                expected_rv=(obj.get("metadata") or {})
-                .get("resourceVersion"))
+            if isinstance(self.store, MemStore):
+                # CAS on the version this update read: a condition write
+                # racing a concurrent bind (e.g. a replacement scheduler
+                # after this one was killed) must lose the CAS rather
+                # than clobber the bound spec.  Over HTTP the PUT handler
+                # applies the same precondition from the body's
+                # resourceVersion.
+                self.store.update(
+                    "pods", obj,
+                    expected_rv=(obj.get("metadata") or {})
+                    .get("resourceVersion"))
+            else:
+                self.store.update("pods", obj)
         except Exception:  # noqa: BLE001 — condition update is best-effort
             pass
 
@@ -358,6 +402,10 @@ class ConfigFactory:
             r.stop()
         self.slo.stop()
         self.daemon.stop()
+        sink = getattr(self.daemon.config.recorder, "_sink", None)
+        close = getattr(sink, "close", None)
+        if close is not None:
+            close()
 
     def abandon(self) -> None:
         """SIGKILL-style teardown for the restart scenarios: reflectors

@@ -89,6 +89,46 @@ REGISTRY: dict[str, tuple[str, str]] = {
     "KT_BIND_CAPACITY": (
         "1", "Store-side bind capacity validation (overcommit binds "
              "conflict)"),
+    # -- the HTTP client (client/http.py) and the apiservers
+    "KT_BIND_PIPELINE": (
+        "4", "Persistent connections pipelining bind-chunk POSTs"),
+    "KT_AIMD_MIN": (
+        "1", "AIMD bind fan-out concurrency floor (ceiling is "
+             "KT_BIND_PIPELINE)"),
+    "KT_AIMD_BACKOFF": (
+        "0.5", "AIMD multiplicative-decrease factor applied on a server "
+               "429"),
+    "KT_WATCH_FRAMES": (
+        "1", "Clients request the framed (length-prefixed multi-event) "
+             "watch encoding; 0 = per-event NDJSON lines"),
+    "KT_APF": (
+        "1", "APF-style priority-level flow control in the apiserver "
+             "request loop; 0 = admit everything"),
+    "KT_APF_SYSTEM_INFLIGHT": (
+        "16", "Reserved max-inflight slots for the system level (lease/"
+              "presence CAS, heartbeats); never queued, never starved by "
+              "lower levels"),
+    "KT_APF_WORKLOAD_INFLIGHT": (
+        "32", "Max-inflight for the workload level (binds, evictions, "
+              "solve traffic)"),
+    "KT_APF_BESTEFFORT_INFLIGHT": (
+        "16", "Max-inflight for the best-effort level (pod-create storms, "
+              "LISTs)"),
+    "KT_APF_QUEUE": (
+        "64", "Bounded FIFO wait-queue depth per queueable level; a full "
+              "queue sheds 429 + Retry-After"),
+    "KT_APF_QUEUE_WAIT_S": (
+        "1.0", "Queue wait deadline in seconds; past it the request sheds "
+               "429"),
+    "KT_APF_WATCH_INFLIGHT": (
+        "128", "Concurrent watch-stream cap; watches are admitted or "
+               "429d, never queued (a stream holds its handler thread for "
+               "its life)"),
+    "KT_APF_RETRY_AFTER_S": (
+        "0.25", "Floor of the honest Retry-After hint on shed responses"),
+    "KT_NATIVE_APISERVER": (
+        "1", "Wire rigs use the native apiserver binary "
+             "(apiserver/native.py:server_command)"),
     # -- options of later slices: each raises NotImplementedError when
     # set (scheduler/factory.py)
     "KT_HA_SHARDS": ("0", "Namespace-hash shard count (HA slice)"),

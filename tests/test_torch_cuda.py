@@ -4,7 +4,8 @@ step loop) on every case of ``perf/scan_check.py`` at the plan's cluster
 size and at one CTA, the single-pod
 select kernel (``kt_select_hosts``) against ``select_hosts_plain``, and
 drains, single-pod decisions, extender responses, the scheduler daemon
-the preemption victim solve, the topology spread planes and drain, the
+(also over HTTP against the port's apiserver, pod for pod against the
+daemon over a ``MemStore``), the preemption victim solve, the topology spread planes and drain, the
 joint solve's price iteration and placements, and the rich sums
 (ImageLocality, the inter-pod priority counts, ``Solver.evaluate`` and a
 rich drain) at f32 matmul precision "highest" and "high", on ``cuda``
@@ -486,3 +487,47 @@ def test_cuda_rich_sums_match_cpu(cuda, precision):
     assert float(h[0].view(torch.float32).max()) > 2048
     assert float(h[1].max()) == 2.0
 
+
+
+@pytest.mark.cuda
+def test_cuda_daemon_over_http_matches_memstore_daemon(cuda):
+    """The port's daemon on cuda over HTTP against the port's apiserver
+    (``mixed`` 1,000 nodes x 2,048 pods, created before the daemon
+    starts) binds every pod as the daemon over a ``MemStore`` on cuda."""
+    from kubernetes_tpu_torch.apiserver.memstore import MemStore
+    from kubernetes_tpu_torch.apiserver.server import serve
+    from kubernetes_tpu_torch.scheduler.factory import ConfigFactory
+    from torch_wire import (create_lists, pod_nodes, store_nodes,
+                            wait_bound, wait_settled)
+    nodes = [api.node_to_json(n)
+             for n in synth.make_nodes(1000, profile="mixed", n_zones=4)]
+    pods = [api.pod_to_json(p)
+            for p in synth.make_pods(2048, profile="mixed", n_services=4)]
+    store = MemStore()
+    for obj in nodes:
+        store.create("nodes", obj)
+    for obj in pods:
+        store.create("pods", obj)
+    f = ConfigFactory(store, device="cuda").run()
+    try:
+        local = wait_settled(lambda: store_nodes(store), 300)
+    finally:
+        f.stop()
+    want = sum(map(bool, local.values()))
+    assert want > len(pods) // 2
+    wire_store = MemStore()
+    srv = serve(wire_store, port=0)
+    base = f"http://127.0.0.1:{srv.server_address[1]}"
+    try:
+        create_lists(base, "nodes", nodes)
+        create_lists(base, "pods", pods)
+        f = ConfigFactory(base, device="cuda", qps=5000, burst=5000).run()
+        try:
+            wait_bound(base, want, 300)
+            assert f.algorithm.device.type == "cuda"
+        finally:
+            f.stop()
+        assert pod_nodes(base) == local
+    finally:
+        srv.shutdown()
+        srv.server_close()

@@ -441,9 +441,18 @@ def test_prewarm_runs_its_plan_and_arms_the_build_watchdog():
 
 def test_factory_refuses_what_later_slices_bring(monkeypatch):
     from kubernetes_tpu_torch.apiserver.memstore import MemStore
+    from kubernetes_tpu_torch.client.http import APIClient
+    from kubernetes_tpu_torch.scheduler.binder import APIClientBinder
     from kubernetes_tpu_torch.scheduler.factory import ConfigFactory
-    with pytest.raises(NotImplementedError, match="HTTP client"):
-        ConfigFactory("http://127.0.0.1:1", device="cpu")
+    # An HTTP source is no longer refused: a URL becomes a rate-limited
+    # APIClient with the wire binder (nothing is contacted before run()).
+    f = ConfigFactory("http://127.0.0.1:1", device="cpu", qps=7, burst=9)
+    try:
+        assert isinstance(f.store, APIClient)
+        assert f.store.limiter.qps == 7 and f.store.limiter.burst == 9
+        assert isinstance(f.daemon.config.binder, APIClientBinder)
+    finally:
+        f.stop()
     with pytest.raises(NotImplementedError, match="tenancy"):
         ConfigFactory(MemStore(), device="cpu", solver_service=object())
     with pytest.raises(NotImplementedError, match="HA"):
@@ -462,6 +471,3 @@ def test_factory_refuses_what_later_slices_bring(monkeypatch):
         finally:
             f.stop()
         monkeypatch.delenv(knob)
-    from kubernetes_tpu_torch.scheduler.binder import APIClientBinder
-    with pytest.raises(NotImplementedError, match="HTTP client"):
-        APIClientBinder(None)

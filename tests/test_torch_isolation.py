@@ -62,6 +62,12 @@ def test_port_sources_import_no_jax_and_no_reference_package():
             "scheduler/slo.py", "scheduler/recovery.py",
             "scheduler/factory.py", "scheduler/__main__.py",
             "api/componentconfig.py"} <= names
+    # The wire slice.
+    assert {"utils/flowcontrol.py", "utils/cron.py", "client/http.py",
+            "utils/leaderelection.py", "apiserver/validation.py",
+            "apiserver/auth.py", "apiserver/flowcontrol.py",
+            "apiserver/server.py", "apiserver/__main__.py",
+            "apiserver/native.py", "controller/replication.py"} <= names
     bad = {str(f.relative_to(REPO)): [m for m in _imports(f)
                                       if _forbidden(m)]
            for f in files}
@@ -150,7 +156,9 @@ def test_the_daemon_loads_no_jax_module():
 def test_the_daemon_binary_on_the_cpu_and_without_a_card():
     """``--device cpu`` serves /healthz and exits 0 on SIGTERM; the
     default ``--device cuda`` exits with an error where there is no
-    card; flags of later slices exit naming their slice."""
+    card; ``--profile-dir`` exits naming its slice; ``--api-server``
+    against the port's apiserver in a subprocess binds a pod on
+    ``--device cpu``."""
     import signal
     import urllib.request
     env = dict(os.environ, PYTHONPATH=str(REPO))
@@ -172,13 +180,37 @@ def test_the_daemon_binary_on_the_cpu_and_without_a_card():
         if proc.poll() is None:
             proc.kill()
             proc.wait()
-    for flags, slice_name in ((["--api-server", "http://x"], "HTTP client"),
-                              (["--serve-apiserver", "8080"], "apiserver"),
-                              (["--leader-elect"], "leader election")):
-        bad = subprocess.run(cmd + ["--device", "cpu"] + flags, cwd=REPO,
-                             env=env, capture_output=True, text=True,
-                             timeout=120)
-        assert bad.returncode != 0 and slice_name in bad.stderr
+    bad = subprocess.run(cmd + ["--device", "cpu", "--profile-dir", "d"],
+                         cwd=REPO, env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert bad.returncode != 0 and "profiler" in bad.stderr
+    from torch_wire import request, start_python_apiserver, stop, wait_until
+    api, base = start_python_apiserver()
+    try:
+        proc = subprocess.Popen(cmd + ["--device", "cpu", "--port", "0",
+                                       "--api-server", base],
+                                cwd=REPO, env=env, stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True)
+        try:
+            for kind, obj in (
+                    ("nodes", {"metadata": {"name": "n0"}, "status": {
+                        "allocatable": {"cpu": "4", "memory": "8Gi",
+                                        "pods": "110"},
+                        "conditions": [{"type": "Ready",
+                                        "status": "True"}]}}),
+                    ("pods", {"metadata": {"name": "p0"}, "spec": {
+                        "containers": [{"name": "c"}]}})):
+                assert request(base, "POST", f"/api/v1/{kind}", obj)[0] == 201
+
+            def bound():
+                body = request(base, "GET",
+                               "/api/v1/namespaces/default/pods/p0")[2]
+                return json.loads(body)["spec"].get("nodeName") == "n0"
+            wait_until(bound, 60, "the daemon to bind p0 over HTTP")
+        finally:
+            assert stop(proc) == 0
+    finally:
+        stop(api)
     if not torch.cuda.is_available():
         bad = subprocess.run(cmd + ["--port", "0"], cwd=REPO, env=env,
                              capture_output=True, text=True, timeout=120)
@@ -194,3 +226,43 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
         ResidentCluster()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         synth.make_rig(4, 4)
+
+
+def test_the_apiserver_binary_loads_no_jax_module():
+    """``python -m kubernetes_tpu_torch.apiserver`` serves, exits 0 on
+    SIGTERM, and loads no ``jax`` and no ``kubernetes_tpu`` module (the
+    interpreter's ``-X importtime`` report lists every import).  It does
+    not import ``torch`` either, so it cannot initialise CUDA."""
+    import signal
+    import urllib.request
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.Popen(
+        [sys.executable, "-X", "importtime", "-m",
+         "kubernetes_tpu_torch.apiserver", "--port", "0"], cwd=REPO,
+        env=env, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
+        text=True)
+    try:
+        lines = []
+        while True:
+            line = proc.stderr.readline()
+            assert line, "".join(lines[-20:])
+            lines.append(line)
+            if "listening on" in line:
+                break
+        addr = line.rsplit(" ", 1)[1].strip()
+        with urllib.request.urlopen(f"http://{addr}/healthz",
+                                    timeout=30) as resp:
+            assert resp.read() == b"ok"
+        proc.send_signal(signal.SIGTERM)
+        lines += proc.stderr.read().splitlines(keepends=True)
+        assert proc.wait(timeout=60) == 0
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        proc.stderr.close()
+    mods = [ln.rsplit("|", 1)[1].strip() for ln in lines
+            if ln.startswith("import time:") and "|" in ln]
+    assert "kubernetes_tpu_torch.apiserver.server" in mods
+    assert [m for m in mods if _forbidden(m)] == []
+    assert [m for m in mods if m == "torch" or m.startswith("torch.")] == []
