@@ -125,14 +125,33 @@ fails the run with a non-zero exit:
    ``python -m kubernetes_tpu_torch.scheduler --api-server URL
    --leader-elect`` as processes: 2,048 pods onto 1,000 nodes bind,
    /configz says cuda, the lease names the daemon, SIGTERM exits both
-   with 0.
+   with 0;
+18. the port's bench (``python -m kubernetes_tpu_torch.perf.bench``, its
+   ``main`` called in process) at the north star, 5,000 ``mixed`` nodes
+   x 30,000 pods, with only the repeats cut: 3 density runs and 1 wire
+   run (the native apiserver) per setting (``stream``, ``one-shot``),
+   the serving rows with a 5 s trickle, joint and workloads at the
+   reference's sizes.  Every density and wire run binds all 30,000
+   pods, 0 zero-bound and 0 failed wire runs, 0 kernel builds after a
+   warm-up, the artifact names the card and ``"backend": "cuda"``; the
+   serving rows' p50/p99 and SLO attainment against the reference's
+   floors (99% trickle, 95% burst and ramp); /debug/timeseries,
+   /debug/dashboard and /debug/profile answer 200 on the daemon's status
+   mux during a wire run; the wire ``profile`` section splits the
+   arrival path's CPU by component, with the unclassified share under
+   the reference's 20% bar.  Then the bench again with ``--profile-dir``
+   (one density run per setting and the joint phase): Chrome traces
+   carrying the three solve sites' labels (``solve_stream_chunk``,
+   ``solve_sequential``, ``solve_joint``) and ``scan.cu``'s kernel with
+   device time.
 
 Phase 2b includes the f32 route of the joint repair and topology spread:
 a non-integral score bias and an extra mask with all-false rows.  It
 prints one ``{"kernels": [...]}`` line (with each kernel's launches on
 its phase's path, in the two daemon runs of phase 9 and on the paths of
-phases 13-17), then the card line, and last ``{"ok": true, "device":
-{...}}``.
+phases 13-18), then the card line, and last ``{"ok": true, "device":
+{...}}``.  ``--bench-only`` runs phases 1 and 18 and prints no result
+lines.
 """
 
 from __future__ import annotations
@@ -2648,6 +2667,187 @@ def phase_wire_binaries(nodes: int, pods: int, card: str,
           f"SIGTERM")
 
 
+# -- the port's bench (phase 18) ---------------------------------------------
+
+# The reference's SLO attainment floors (kubernetes_tpu/perf/serving.py:
+# 299-313) and its bar on the profile's unclassified CPU share
+# (tools/check_bench.py UNCLASSIFIED_BAR).
+SERVING_FLOORS = {"poisson_trickle": 99.0, "burst_replay": 95.0,
+                  "ramp": 95.0}
+UNCLASSIFIED_BAR = 0.20
+BENCH_PATHS = ("bench_density_stream", "bench_density_one-shot",
+               "bench_wire_stream", "bench_wire_one-shot", "serving")
+
+
+def run_bench(env: dict, argv: list) -> dict:
+    """``perf/bench.main(argv)`` in this process under ``env``; returns
+    its artifact (a non-zero exit fails the phase)."""
+    import os
+    from kubernetes_tpu_torch.perf import bench
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        rc = bench.main(argv)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    out = argv[argv.index("--out") + 1]
+    with open(out) as f:
+        art = json.load(f)
+    if rc != 0:
+        fail(f"18: the bench exited {rc}: {art.get('failures')}")
+    return art
+
+
+def phase_bench(nodes: int, pods: int, card: str,
+                dev: str = "cuda") -> dict:
+    """18: the bench at the north star, repeats cut; then a profiled
+    run.  ``dev="cpu"`` is a rehearsal at a small size (no card, no
+    kernel launches to hold it to)."""
+    import glob
+    import os
+    import tempfile
+    from kubernetes_tpu_torch.utils import profiling
+
+    out_dir = os.path.join("build", "bench")
+    os.makedirs(out_dir, exist_ok=True)
+    out = os.path.join(out_dir, "BENCH_cuda.json")
+    env = {"BENCH_NODES": str(nodes), "BENCH_PODS": str(pods),
+           "BENCH_PROFILE": "mixed", "BENCH_DENSITY_RUNS": "3",
+           "BENCH_WIRE": "1", "BENCH_WIRE_RUNS": "1", "BENCH_JOINT": "1",
+           "BENCH_WORKLOADS": "1", "BENCH_SERVING": "1"}
+    zero_counts()
+    t0 = time.perf_counter()
+    art = run_bench(env, ["--device", dev, "--out", out,
+                          "--serving-trickle-s", "5"])
+    secs = time.perf_counter() - t0
+    counts = kernel_counts()
+    want_card = card if dev == "cuda" else None
+    if art.get("backend") != dev or art.get("card") != want_card:
+        fail(f"18: the artifact names {art.get('backend')!r} "
+             f"{art.get('card')!r}, not {dev} {want_card!r}")
+    for setting, block in art["settings"].items():
+        if block["scheduled_runs"] != [pods] * 3:
+            fail(f"18: density {setting} bound {block['scheduled_runs']}")
+    wire = art["wire"]["settings"]
+    for setting, block in wire.items():
+        if block["zero_bound_runs"] or block["failed_runs"] or \
+                block.get("scheduled_runs") != [pods]:
+            fail(f"18: wire {setting}: {block['zero_bound_runs']} "
+                 f"zero-bound, {block['failed_runs']} failed, bound "
+                 f"{block.get('scheduled_runs')}: {block['errors']}")
+        for route, (status, ctype) in block["status_routes"].items():
+            if status != 200:
+                fail(f"18: wire {setting}: {route} answered {status}")
+    if art["post_prewarm_compiles"] or \
+            art["serving"]["post_prewarm_compiles"]:
+        fail(f"18: kernel builds after a warm-up: "
+             f"{art['post_prewarm_compiles']} bench, "
+             f"{art['serving']['post_prewarm_compiles']} serving")
+    paths = art["launches_by_path"]
+    for path in BENCH_PATHS:
+        if dev == "cuda" and paths[path]["scan_chunk"] < 1:
+            fail(f"18: no scan launch on {path}: {paths[path]}")
+    for kernel, total in counts.items():
+        if sum(v[kernel] for v in paths.values()) > total:
+            fail(f"18: {kernel}: the bench's per-path launches "
+                 f"{paths} exceed the {total} counted")
+    lib = art["library_build_s"] or {"built": False, "seconds": 0.0}
+    print(f"phase 18: {want_card or dev}: bench {nodes} nodes x {pods} "
+          f"pods in {secs:.3f} s (library "
+          f"{'built' if lib['built'] else 'loaded'} in "
+          f"{lib['seconds']:.3f} s); launches {counts}")
+    for setting, b in art["settings"].items():
+        print(f"phase 18: density {setting} ({b['route']}): runs "
+              f"{b['elapsed_s_runs']} s, p50 {b['elapsed_s_p50']} s, "
+              f"spread {b['elapsed_s_spread']}, best {b['value']} pods/s, "
+              f"median {b['median']} pods/s; warm {b['warm_s_runs']} s; "
+              f"stages {json.dumps(b['stages'])}; launches "
+              f"{b['device']['launches']}; post-prewarm builds 0")
+    for setting, b in wire.items():
+        print(f"phase 18: wire {setting} ({b['apiserver']} apiserver, "
+              f"{b['route']}): {b['elapsed_s']} s, "
+              f"{b['pods_per_second']} pods/s, create {b['create_s']} s, "
+              f"warm {b['warm_compile_s']} s, launches {b['launches']}; "
+              f"routes {b['status_routes']}; stages "
+              f"{json.dumps(b['stages'])}")
+        prof = b["profile"]
+        cpu = prof.get("cpu_seconds", {})
+        uf = prof.get("unclassified_fraction")
+        print(f"phase 18: wire {setting} profile over {prof['wall_s']} s: "
+              f"cpu s {json.dumps(cpu)}, unclassified {uf} (bar "
+              f"{UNCLASSIFIED_BAR}), {prof.get('samples')} samples, "
+              f"sampler {prof.get('sampler_self_cpu_s')} s; wire "
+              f"{json.dumps(prof.get('wire'))}")
+        if not prof.get("enabled") or uf is None or uf > UNCLASSIFIED_BAR:
+            fail(f"18: wire {setting}: unclassified CPU share {uf} above "
+                 f"the {UNCLASSIFIED_BAR} bar (or the profiler was off)")
+    for name, row in art["serving"]["rows"].items():
+        floor = SERVING_FLOORS[name]
+        att = row["slo"]["attainment_pct"]
+        print(f"phase 18: serving {name}: {row['bound']} of {row['pods']} "
+              f"bound, p50 {row['latency_ms']['p50']} ms, p99 "
+              f"{row['latency_ms']['p99']} ms, max "
+              f"{row['latency_ms']['max']} ms, SLO "
+              f"{row['slo']['slo_ms']} ms attained by {att}% (floor "
+              f"{floor}%)")
+        if row["bound"] != row["pods"] or att < floor:
+            fail(f"18: serving {name}: {row['bound']}/{row['pods']} bound, "
+                 f"attainment {att}% under its {floor}% floor")
+    print(f"phase 18: joint {art['joint']}; workloads "
+          f"{ {k: v for k, v in art['workloads'].items() if k != 'record'} }")
+
+    # The profiled run: one density run per setting and the joint phase.
+    trace_dir = tempfile.mkdtemp(prefix="kt_traces_")
+    t0 = time.perf_counter()
+    try:
+        prof_art = run_bench(
+            dict(env, BENCH_DENSITY_RUNS="1", BENCH_WIRE="0",
+                 BENCH_WORKLOADS="0", BENCH_SERVING="0"),
+            ["--device", dev, "--profile-dir", trace_dir, "--out",
+             os.path.join(out_dir, "BENCH_cuda_profiled.json")])
+    finally:
+        profiling.set_profile_dir("")
+    secs = time.perf_counter() - t0
+    files = sorted(glob.glob(os.path.join(trace_dir, "*.pt.trace.json")))
+    labels: set = set()
+    kernel_us = 0.0
+    kernel_events = 0
+    for path in files:
+        with open(path) as f:
+            events = json.load(f).get("traceEvents", [])
+        for e in events:
+            name = e.get("name", "")
+            if name.startswith("solve_"):
+                labels.add(name)
+            if "scan_chunk_kernel" in name and \
+                    e.get("cat", "").lower() == "kernel":
+                kernel_events += 1
+                kernel_us += float(e.get("dur", 0.0))
+    want = {"solve_stream_chunk", "solve_sequential", "solve_joint"}
+    if not files or not want <= labels or (dev == "cuda" and (
+            kernel_events < 1 or kernel_us <= 0)):
+        fail(f"18: profiled run wrote {len(files)} traces with labels "
+             f"{sorted(labels)}, {kernel_events} scan_chunk_kernel events "
+             f"({kernel_us:.1f} us)")
+    print(f"phase 18: --profile-dir: {len(files)} Chrome traces in "
+          f"{secs:.3f} s ({prof_art['profile_dir']}), labels "
+          f"{sorted(labels)}, {kernel_events} scan_chunk_kernel events "
+          f"with {kernel_us / 1e3:.3f} ms of device time; profiled density "
+          f"stream {prof_art['settings']['stream']['elapsed_s_runs']} s, "
+          f"one-shot {prof_art['settings']['one-shot']['elapsed_s_runs']} "
+          f"s (unprofiled p50 "
+          f"{art['settings']['stream']['elapsed_s_p50']} / "
+          f"{art['settings']['one-shot']['elapsed_s_p50']} s)")
+    for path in files:
+        os.remove(path)
+    os.rmdir(trace_dir)
+    return {"paths": {k: paths[k] for k in BENCH_PATHS}, "art": art}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--nodes", type=int, default=5000)
@@ -2668,6 +2868,9 @@ def main() -> int:
     ap.add_argument("--kernels-only", action="store_true",
                     help="build and run phases 2, 2b and 6 only; prints "
                          "no result lines")
+    ap.add_argument("--bench-only", action="store_true",
+                    help="build and run phase 18 only; prints no result "
+                         "lines")
     args = ap.parse_args()
     t_start = time.perf_counter()
 
@@ -2675,7 +2878,13 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
-    from kubernetes_tpu_torch.engine import kernels
+    try:
+        from kubernetes_tpu_torch.engine import kernels
+    except ImportError as err:
+        print(f"chip_smoke: the kubernetes_tpu_torch package is not "
+              f"importable ({err}); run the script from the root of a "
+              f"checkout", file=sys.stderr)
+        return 2
 
     card = card_line()
     print(f"phase 1: card {card}; torch {torch.__version__} "
@@ -2689,6 +2898,9 @@ def main() -> int:
         print(f"phase 1: nvcc: {line}")
 
     dev = torch.device("cuda")
+    if args.bench_only:
+        phase_bench(args.nodes, args.pods, card)
+        return 0
     kstats = phase_kernel(dev)
     sstats = phase_scan(dev)
     hstats = phase_select_hosts(dev)
@@ -2711,10 +2923,14 @@ def main() -> int:
     wire17 = phase_wire_parity(args.parity_nodes, args.parity_pods, card)
     wire17.update(phase_wire_north_star(args.nodes, args.pods, card))
     phase_wire_binaries(args.binary_nodes, args.binary_pods, card)
+    bench18 = phase_bench(args.nodes, args.pods, card)
 
     def wire_launches(kernel: str) -> dict:
-        return {f"wire_{run}": wire17[run]["counts"][kernel]
-                for run in ("memstore", "wire", "stream", "one-shot")}
+        out = {f"wire_{run}": wire17[run]["counts"][kernel]
+               for run in ("memstore", "wire", "stream", "one-shot")}
+        out.update({path: counts[kernel]
+                    for path, counts in bench18["paths"].items()})
+        return out
 
     kernels_line = [{
         "name": "select_rows",

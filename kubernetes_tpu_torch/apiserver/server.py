@@ -23,9 +23,9 @@ verbs/s per connection with this loop, with JSON itself at only ~2% of
 request cost (so a binary codec would buy nothing; the framing layer was
 the bottleneck).
 
-Counterpart of ``kubernetes_tpu/apiserver/server.py``.  /debug/timeseries,
-/debug/dashboard and /debug/profile answer 501: the telemetry ring and
-the sampling profiler behind them belong to the telemetry slice.
+Counterpart of ``kubernetes_tpu/apiserver/server.py``, with the same
+/debug/timeseries, /debug/dashboard (the self-scrape telemetry ring) and
+/debug/profile (the sampling CPU profiler) routes.
 """
 
 from __future__ import annotations
@@ -46,7 +46,6 @@ from kubernetes_tpu_torch.apiserver.validation import (AdmissionError,
                                                  admit_and_validate,
                                                  store_admission)
 from kubernetes_tpu_torch.utils import trace as trace_mod
-from kubernetes_tpu_torch.utils.debugmux import NOT_PORTED
 from kubernetes_tpu_torch.utils.metrics import (APISERVER_REQUEST_LATENCY,
                                           APISERVER_SERIALIZE_OPS,
                                           APISERVER_SERIALIZE_SECONDS,
@@ -408,13 +407,28 @@ def make_handler(store: MemStore, auth=None, admission_control=None,
                 self._send_json_bytes(200,
                                       trace_mod.to_chrome_trace().encode())
                 return True
-            if parts in (["debug", "timeseries"], ["debug", "dashboard"],
-                         ["debug", "profile"]):
-                # Backed by the self-scrape telemetry ring and the
-                # sampling profiler, which this package does not have
-                # yet (the telemetry slice): 501, as the scheduler's
-                # status mux answers them (utils/debugmux.py).
-                self._send_raw(*NOT_PORTED)
+            if parts == ["debug", "timeseries"]:
+                from kubernetes_tpu_torch.utils import telemetry
+                self._send_json_bytes(
+                    200, telemetry.timeseries_json().encode())
+                return True
+            if parts == ["debug", "dashboard"]:
+                from kubernetes_tpu_torch.utils import telemetry
+                self._send_raw(200, telemetry.dashboard_html().encode(),
+                               "text/html; charset=utf-8")
+                return True
+            if parts == ["debug", "profile"]:
+                # kt-prof continuous CPU profile; disabled (KT_PROF=0)
+                # is a client-visible 404, never a 500.
+                from kubernetes_tpu_torch.utils import profiler
+                resolved = profiler.render(query)
+                if resolved is None:
+                    self._send_raw(404,
+                                   b"profiling disabled (KT_PROF=0)",
+                                   "text/plain")
+                else:
+                    body, ctype = resolved
+                    self._send_raw(200, body, ctype)
                 return True
             if parts == ["debug", "vars"]:
                 # Live flow-control state (the scheduler's /debug/vars
@@ -802,6 +816,13 @@ def serve(store: MemStore, port: int = 0,
     name, O -> groups — the x509 request authenticator,
     plugin/pkg/auth/authenticator/request/x509), taking precedence over
     bearer tokens."""
+    # The apiserver self-scrapes like every other daemon: its request-
+    # latency registry lands in the ring /debug/timeseries serves.
+    from kubernetes_tpu_torch.utils import profiler, telemetry
+    telemetry.ensure_started()
+    # kt-prof sampling starts with the daemon (one branch when KT_PROF=0)
+    # so /debug/profile covers the server's whole life.
+    profiler.ensure_started()
     # Priority-level flow control, knobs read once here (never per
     # request); pass an explicit FlowController to override caps in
     # tests/rigs.

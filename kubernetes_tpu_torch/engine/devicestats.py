@@ -15,7 +15,9 @@ Counterpart of ``kubernetes_tpu/engine/devicestats.py`` on ``torch.cuda``:
   ``torch.cuda.memory_allocated`` / ``max_memory_allocated`` on the
   scheduler's device (``track_device``), and 0 for a CPU device; the
   ``scheduler_device_hbm_{live,peak}_bytes`` gauges read through them at
-  expose.
+  expose.  ``sample_hbm()`` is the per-scrape read the telemetry ring
+  and the benches call (the allocator keeps its own peak, so a sample
+  refreshes nothing).
 
 * **Kernel-build watchdog.**  The JAX package counts XLA compiles after
   prewarm; torch has no per-shape compile, so the honest counterpart is
@@ -24,7 +26,8 @@ Counterpart of ``kubernetes_tpu/engine/devicestats.py`` on ``torch.cuda``:
   finishes) makes every later build count in
   ``scheduler_post_prewarm_compiles_total{path=}`` (the live path the
   drain declared via ``live_path()``) and record a
-  ``post_prewarm_compile`` span.
+  ``post_prewarm_compile`` span.  ``watchdog_window()`` arms it for a
+  measured window and yields the count of builds inside it.
 
 Everything here is observability: no hook can take the drain path down.
 """
@@ -34,7 +37,7 @@ from __future__ import annotations
 import contextlib
 import threading
 import traceback
-from typing import Iterator
+from typing import Callable, Iterator
 
 import torch
 
@@ -115,6 +118,14 @@ def hbm_peak_bytes() -> int:
         return 0
 
 
+def sample_hbm() -> int:
+    """The live bytes now (called per telemetry scrape and per bench
+    wave).  The CUDA caching allocator keeps the peak itself
+    (``max_memory_allocated``), so there is no fallback peak to refresh;
+    0 on a CPU device."""
+    return hbm_live_bytes()
+
+
 metrics.DEVICE_HBM_LIVE_BYTES.set_fn(hbm_live_bytes)
 metrics.DEVICE_HBM_PEAK_BYTES.set_fn(hbm_peak_bytes)
 
@@ -177,8 +188,26 @@ def disarm() -> None:
         _armed = False
 
 
+def armed() -> bool:
+    return _armed
+
+
 def post_prewarm_compiles() -> int:
     return int(metrics.POST_PREWARM_COMPILES.value)
+
+
+@contextlib.contextmanager
+def watchdog_window() -> Iterator[Callable[[], int]]:
+    """Arm for the duration of a measured window (benches, tests) and
+    yield a callable returning the builds counted inside it."""
+    before = post_prewarm_compiles()
+    was = _armed
+    arm()
+    try:
+        yield lambda: post_prewarm_compiles() - before
+    finally:
+        if not was:
+            disarm()
 
 
 @contextlib.contextmanager

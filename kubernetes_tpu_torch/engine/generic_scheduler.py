@@ -19,8 +19,9 @@ and the hard mask in the preemption base.
 
 Every device solve site runs inside the device guard
 (``engine/guard.py``: ``watch`` classifies CUDA faults, every assignment
-readback passes ``checked_readback``), under ``devicestats.live_path``
-and a ``stage`` span.  There is no host engine to fall back to: a
+readback passes ``checked_readback``), under ``devicestats.live_path``,
+``utils/profiling.device_trace`` (a ``torch.profiler`` trace per solve
+with ``--profile-dir``) and a ``stage`` span.  There is no host engine to fall back to: a
 classified fault surfaces as ``DeviceFault`` (the daemon's pipeline
 retries, bisects or requeues), and a non-finite score plane on the
 single-pod path raises :class:`ScoreGateError`.
@@ -56,6 +57,7 @@ from kubernetes_tpu_torch.ops import combine
 from kubernetes_tpu_torch.utils import device as device_mod
 from kubernetes_tpu_torch.utils import metrics
 from kubernetes_tpu_torch.utils.logging import get_logger
+from kubernetes_tpu_torch.utils.profiling import device_trace
 from kubernetes_tpu_torch.utils.trace import Trace, stage
 
 log = get_logger("engine")
@@ -626,6 +628,7 @@ class GenericScheduler:
         # counter + final aggregates.
         p, n = len(pods), sv.cluster_nodes(dc)
         with devicestats.live_path("oneshot"), \
+                device_trace("solve_sequential"), \
                 self.guard.watch("oneshot"), \
                 stage("solve", pods=p, mode="sequential"):
             packed = self.solver.solve_sequential_packed(
@@ -666,7 +669,8 @@ class GenericScheduler:
         """The joint branch of ``schedule_batch``: one ``solve_joint``,
         then one device->host copy of the choices and the counter."""
         p, n = len(pods), sv.cluster_nodes(dc)
-        with devicestats.live_path("joint"), self.guard.watch("joint"), \
+        with devicestats.live_path("joint"), \
+                device_trace("solve_joint"), self.guard.watch("joint"), \
                 stage("solve", pods=p, mode="joint"):
             choices, counter, _ = self.solver.solve_joint(
                 db, dc, self._counter(), flags=flags,
@@ -777,6 +781,7 @@ class GenericScheduler:
             # The launch is async: device time surfaces in the chunk's
             # readback, which is what keeps the pipeline overlapped.
             with devicestats.live_path("stream"), \
+                    device_trace("solve_stream_chunk"), \
                     self.guard.watch("stream"), \
                     stage("solve", chunk_at=start, mode="stream"):
                 em_k = sb_k = None

@@ -6,18 +6,19 @@ analogue of plugin/cmd/kube-scheduler, app/server.go:71-183): the flag
 surface (options/options.go:55-77) plus ``--device``, the policy-file
 load (server.go:165-183), feature gates and ``--config``, an HTTP mux
 serving /healthz, /metrics and /configz (server.go:93-109) with the
-flight recorder, the span ring and /debug/vars, and an optional
+flight recorder, the span ring, /debug/vars, the telemetry ring
+(/debug/timeseries, /debug/dashboard), the thread dump (/debug/pprof) and
+the sampling CPU profiler (/debug/profile), and an optional
 leader-election-wrapped run on an Endpoints annotation lease
 (server.go:142-159).  ``--api-server URL`` schedules a separate
 apiserver over HTTP list/watch/bind; without it the daemon runs against
 a fresh in-process ``MemStore``, exposed over HTTP with
-``--serve-apiserver PORT`` (the all-in-one dev mode).  The telemetry and
-profiler routes answer 501.
+``--serve-apiserver PORT`` (the all-in-one dev mode).
 
 ``--device`` defaults to ``cuda`` and the daemon exits with an error
-without a card; ``--device cpu`` must be asked for.  ``--profile-dir``
-(the profiler slice) exits with an error naming the slice that brings
-it.
+without a card; ``--device cpu`` must be asked for.  ``--profile-dir
+DIR`` (or ``KT_PROFILE_DIR``) writes a ``torch.profiler`` Chrome trace of
+every device solve into DIR (``utils/profiling.py``).
 """
 
 from __future__ import annotations
@@ -44,12 +45,6 @@ from kubernetes_tpu_torch.utils.logging import configure, get_logger
 log = get_logger("scheduler")
 
 DEFAULT_PORT = 10251  # options/options.go:49 SchedulerDefaultPort
-
-# Flags of the reference binary that later slices bring: flag -> slice.
-NOT_PORTED_FLAGS = {
-    "profile_dir": ("--profile-dir", "profiler"),
-}
-
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
@@ -89,8 +84,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--v", type=int, default=None,
                    help="log verbosity (glog-style; also KT_LOG_V)")
     p.add_argument("--profile-dir", default="",
-                   help="device traces of every solve (not ported: "
-                        "profiler slice)")
+                   help="write torch.profiler Chrome traces of every "
+                        "device solve here (also KT_PROFILE_DIR; view in "
+                        "Perfetto)")
     p.add_argument("--config", default="",
                    help="KubeSchedulerConfiguration JSON file "
                         "(componentconfig/types.go:426-457); explicit "
@@ -134,16 +130,6 @@ def apply_component_config(p: argparse.ArgumentParser, argv):
     if not hasattr(opts, "enable_profiling"):
         opts.enable_profiling = True  # reference scheduler default
     return opts
-
-
-def refuse_not_ported(opts) -> None:
-    """Exit with an error for any flag a later slice brings."""
-    for attr, (flag, slice_name) in NOT_PORTED_FLAGS.items():
-        if getattr(opts, attr):
-            raise SystemExit(
-                f"{flag} is not ported to kubernetes_tpu_torch yet "
-                f"({slice_name} slice); use python -m "
-                f"kubernetes_tpu.scheduler for it")
 
 
 def load_policy(opts):
@@ -228,8 +214,16 @@ def debug_vars(factory: ConfigFactory) -> dict:
 def status_mux(factory: ConfigFactory, configz: dict, port: int
                ) -> ThreadingHTTPServer:
     """The daemon's own HTTP surface (server.go:93-109)."""
+    from kubernetes_tpu_torch.utils import profiler, telemetry
     from kubernetes_tpu_torch.utils.debugmux import common_route
     metrics = factory.daemon.config.metrics
+    # Self-scrape ring: the daemon-scoped metric set (queue depth, batch
+    # size, attempts) rides the ring next to the default registry so the
+    # dashboard's queue/stage/SLO sparklines have their sources.
+    telemetry.ensure_started(metrics.all_metrics())
+    # kt-prof rides the same lifecycle: sampling starts with the mux so
+    # the profile covers the daemon's whole life (KT_PROF=0 = no-op).
+    profiler.ensure_started()
 
     class Handler(BaseHTTPRequestHandler):
         protocol_version = "HTTP/1.1"
@@ -247,6 +241,12 @@ def status_mux(factory: ConfigFactory, configz: dict, port: int
 
         def do_GET(self):
             path, _, query = self.path.partition("?")
+            if path.startswith("/debug/pprof") and \
+                    not configz.get("enableProfiling", True):
+                # EnableProfiling=false removes the handlers, as the
+                # reference's mux does (server.go:96).
+                self._send(404, b"profiling disabled")
+                return
             shared = common_route(path, metrics_fn=metrics.expose,
                                   query=query,
                                   openmetrics_fn=metrics.expose_openmetrics)
@@ -273,8 +273,10 @@ def status_mux(factory: ConfigFactory, configz: dict, port: int
 
 def main(argv=None) -> int:
     opts = apply_component_config(build_parser(), argv)
-    refuse_not_ported(opts)
     configure(v=opts.v)
+    if opts.profile_dir:
+        from kubernetes_tpu_torch.utils.profiling import set_profile_dir
+        set_profile_dir(opts.profile_dir)
     from kubernetes_tpu_torch.utils import featuregate
     try:
         gates = featuregate.FeatureGate.parse(opts.feature_gates)

@@ -11,10 +11,11 @@ A stock kube-scheduler configured with
 Filter/Prioritize calls here unchanged; each request carries the pod and the
 candidate node list, the engine answers from one batched device evaluation.
 
-Also serves GET /healthz, /metrics (Prometheus text), /configz and
-/debug/traces — the daemon endpoints every reference binary exposes
-(app/server.go:93-109); the telemetry and profiler routes answer 501
-(``utils/debugmux.py``).
+Also serves GET /healthz, /metrics (Prometheus text), /configz,
+/debug/traces, the telemetry ring's /debug/timeseries and
+/debug/dashboard, /debug/pprof and the sampling profiler's
+/debug/profile — the daemon endpoints every reference binary exposes
+(app/server.go:93-109; ``utils/debugmux.py``).
 
 Counterpart of ``kubernetes_tpu/server/extender.py``: the same wire
 responses, byte for byte, from PyTorch planes read back as numpy arrays
@@ -541,6 +542,12 @@ def serve(port: int = 12346, policy: Policy | None = None,
           device: "str | torch.device | None" = "cuda"
           ) -> ThreadingHTTPServer:
     core = ExtenderCore(policy, device=device)
+    # Self-scrape ring behind /debug/timeseries + /debug/dashboard: the
+    # extender's verb-latency metric set rides next to the registry.
+    from kubernetes_tpu_torch.utils import profiler, telemetry
+    telemetry.ensure_started(core.metrics.all_metrics())
+    # kt-prof sampling starts with the daemon (no-op when KT_PROF=0).
+    profiler.ensure_started()
     server = ThreadingHTTPServer((host, port), make_handler(core))
     _freeze_baseline_heap()
     return server

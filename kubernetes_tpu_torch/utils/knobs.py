@@ -27,6 +27,23 @@ REGISTRY: dict[str, tuple[str, str]] = {
     "KT_LOG_V": (
         "0", "Log verbosity (glog -v shape): <=1 INFO, <5 DEBUG, "
              ">=5 VERBOSE"),
+    "KT_PROFILE_DIR": (
+        "", "torch.profiler trace dir for device solves (empty = no-op "
+            "hook)"),
+    "KT_TELEMETRY_RING": (
+        "720", "Self-scrape time-series ring capacity in samples"),
+    "KT_TELEMETRY_PERIOD": (
+        "5", "Self-scrape cadence in seconds (0 = no sampler thread)"),
+    "KT_PROF": (
+        "1", "kt-prof continuous CPU profiler; 0 = off (one branch, no "
+             "sampler thread, /debug/profile answers 404)"),
+    "KT_PROF_HZ": (
+        "19", "kt-prof max sample rate in Hz (off-beat default so the "
+              "sampler never phase-locks with periodic work; the loop "
+              "self-paces below this to keep sampler CPU under 2%)"),
+    "KT_PROF_RING": (
+        "512", "kt-prof folded-stack table bound (distinct stacks; "
+               "overflow CPU folds into one ring-truncated bucket)"),
     "KT_LOCKTRACE": (
         "0", "Instrumented locks: acquisition chains, order-inversion and "
              "long-hold detection (utils/locktrace.py)"),
@@ -129,6 +146,13 @@ REGISTRY: dict[str, tuple[str, str]] = {
     "KT_NATIVE_APISERVER": (
         "1", "Wire rigs use the native apiserver binary "
              "(apiserver/native.py:server_command)"),
+    # -- perf rigs
+    "KT_WIRE_CHUNK": (
+        "", "density_wire stream chunk (default: the setting's, 4,096 "
+            "for stream, the whole burst for one-shot)"),
+    "KT_WIRE_ACCUM": (
+        "", "density_wire batch-formation deadline in ms (default: the "
+            "setting's, 20 for stream, 3,000 for one-shot)"),
     # -- options of later slices: each raises NotImplementedError when
     # set (scheduler/factory.py)
     "KT_HA_SHARDS": ("0", "Namespace-hash shard count (HA slice)"),

@@ -5,7 +5,7 @@ size and at one CTA, the single-pod
 select kernel (``kt_select_hosts``) against ``select_hosts_plain``, and
 drains, single-pod decisions, extender responses, the scheduler daemon
 (also over HTTP against the port's apiserver, pod for pod against the
-daemon over a ``MemStore``), the preemption victim solve, the topology spread planes and drain, the
+daemon over a ``MemStore``), the bench's density rig, the preemption victim solve, the topology spread planes and drain, the
 joint solve's price iteration and placements, and the rich sums
 (ImageLocality, the inter-pod priority counts, ``Solver.evaluate`` and a
 rich drain) at f32 matmul precision "highest" and "high", on ``cuda``
@@ -531,3 +531,28 @@ def test_cuda_daemon_over_http_matches_memstore_daemon(cuda):
     finally:
         srv.shutdown()
         srv.server_close()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("setting", ["stream", "one-shot"])
+def test_cuda_bench_density_matches_cpu(cuda, monkeypatch, setting):
+    """The bench's density rig (``perf/harness.density``) at 1,000
+    ``mixed`` nodes x 4,096 pods: the card binds every pod where the CPU
+    does, the steady-state waves included, with 0 kernel builds after
+    the warm-up and the scan kernel launched in the timed drain."""
+    from kubernetes_tpu_torch.perf import harness
+    made = []
+    real = harness._make_daemon
+
+    def make(*a, **k):
+        made.append(real(*a, **k))
+        return made[-1]
+    monkeypatch.setattr(harness, "_make_daemon", make)
+    runs = {dev: harness.density(1000, 4096, profile="mixed", quiet=True,
+                                 setting=setting, device=dev)
+            for dev in ("cuda", "cpu")}
+    assert runs["cuda"].scheduled == runs["cpu"].scheduled == 4096
+    assert made[0].config.binder._bound == made[1].config.binder._bound
+    assert runs["cuda"].device["post_prewarm_compiles"] == 0
+    assert runs["cuda"].device["launches"]["scan_chunk"] >= 1
+    assert runs["cpu"].device["launches"]["scan_chunk"] == 0

@@ -11,8 +11,9 @@ without versions, and bodies that are not ExtenderArgs.  Tolerance:
 every response identical byte for byte.
 
 Then one HTTP round trip through the port's ``serve_in_thread`` on the
-CPU (verbs, /healthz, /metrics, /configz, a 501 route) and ``main``'s
-argument parsing."""
+CPU (verbs, /healthz, /metrics, /configz, the telemetry and profiler
+routes with the JAX package's statuses and content types) and
+``main``'s argument parsing."""
 
 from __future__ import annotations
 
@@ -194,10 +195,13 @@ def test_http_round_trip_on_the_cpu():
         assert code == 200 and "GeneralPredicates" in cfg["predicates"]
         code, body, _ = _get(f"{url}/debug/traces")
         assert code == 200 and "traceEvents" in json.loads(body)
+        from kubernetes_tpu.utils import debugmux as ref_mux
         for route in ("/debug/timeseries", "/debug/dashboard",
                       "/debug/pprof/goroutine", "/debug/profile"):
-            code, body, _ = _get(f"{url}{route}")
-            assert code == 501 and b"not ported" in body, route
+            code, body, ctype = _get(f"{url}{route}")
+            want = ref_mux.common_route(route)
+            assert (code, ctype) == (want[0], want[2]), route
+            assert body, route
         assert _get(f"{url}/nope")[0] == 404
         req = urllib.request.Request(f"{url}/scheduler/bind", data=b"{}",
                                      method="POST")

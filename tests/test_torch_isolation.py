@@ -68,6 +68,12 @@ def test_port_sources_import_no_jax_and_no_reference_package():
             "apiserver/auth.py", "apiserver/flowcontrol.py",
             "apiserver/server.py", "apiserver/__main__.py",
             "apiserver/native.py", "controller/replication.py"} <= names
+    # The bench and observability slice.
+    assert {"perf/bench.py", "perf/harness.py", "perf/serving.py",
+            "perf/profiler_cost.py", "utils/profiler.py",
+            "utils/telemetry.py",
+            "utils/profiling.py", "utils/debugmux.py",
+            "utils/knobs.py"} <= names
     bad = {str(f.relative_to(REPO)): [m for m in _imports(f)
                                       if _forbidden(m)]
            for f in files}
@@ -153,12 +159,13 @@ def test_the_daemon_loads_no_jax_module():
     assert out["forbidden"] == []
 
 
-def test_the_daemon_binary_on_the_cpu_and_without_a_card():
+def test_the_daemon_binary_on_the_cpu_and_without_a_card(tmp_path):
     """``--device cpu`` serves /healthz and exits 0 on SIGTERM; the
     default ``--device cuda`` exits with an error where there is no
-    card; ``--profile-dir`` exits naming its slice; ``--api-server``
-    against the port's apiserver in a subprocess binds a pod on
-    ``--device cpu``."""
+    card; ``--api-server`` against the port's apiserver in a subprocess
+    binds a pod on ``--device cpu`` with ``--profile-dir`` set, which
+    writes a ``torch.profiler`` trace of the solve that placed it and
+    serves the telemetry and profiler routes."""
     import signal
     import urllib.request
     env = dict(os.environ, PYTHONPATH=str(REPO))
@@ -180,18 +187,17 @@ def test_the_daemon_binary_on_the_cpu_and_without_a_card():
         if proc.poll() is None:
             proc.kill()
             proc.wait()
-    bad = subprocess.run(cmd + ["--device", "cpu", "--profile-dir", "d"],
-                         cwd=REPO, env=env, capture_output=True, text=True,
-                         timeout=120)
-    assert bad.returncode != 0 and "profiler" in bad.stderr
     from torch_wire import request, start_python_apiserver, stop, wait_until
+    traces = tmp_path / "traces"
     api, base = start_python_apiserver()
     try:
         proc = subprocess.Popen(cmd + ["--device", "cpu", "--port", "0",
-                                       "--api-server", base],
+                                       "--api-server", base,
+                                       "--profile-dir", str(traces)],
                                 cwd=REPO, env=env, stdout=subprocess.PIPE,
                                 stderr=subprocess.PIPE, text=True)
         try:
+            port = json.loads(proc.stdout.readline())["port"]
             for kind, obj in (
                     ("nodes", {"metadata": {"name": "n0"}, "status": {
                         "allocatable": {"cpu": "4", "memory": "8Gi",
@@ -207,6 +213,19 @@ def test_the_daemon_binary_on_the_cpu_and_without_a_card():
                                "/api/v1/namespaces/default/pods/p0")[2]
                 return json.loads(body)["spec"].get("nodeName") == "n0"
             wait_until(bound, 60, "the daemon to bind p0 over HTTP")
+            written = sorted(traces.glob("solve_*.pt.trace.json"))
+            assert written
+            events = json.loads(written[0].read_text())["traceEvents"]
+            assert any(e.get("name", "").startswith("solve_")
+                       for e in events)
+            mux = f"http://127.0.0.1:{port}"
+            for route, ctype in (("/debug/timeseries", "application/json"),
+                                 ("/debug/dashboard", "text/html"),
+                                 ("/debug/pprof/goroutine", "text/plain"),
+                                 ("/debug/profile", "application/json")):
+                status, headers, body = request(mux, "GET", route)
+                assert status == 200 and body, route
+                assert headers["content-type"].startswith(ctype), route
         finally:
             assert stop(proc) == 0
     finally:

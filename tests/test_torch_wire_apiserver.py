@@ -19,6 +19,8 @@ under token authentication and RBAC.
 from __future__ import annotations
 
 import contextlib
+import json
+
 import pytest
 
 from kubernetes_tpu.apiserver import auth as r_auth
@@ -138,9 +140,18 @@ def test_tokens_and_rbac_answer_alike():
 @pytest.mark.parametrize("path", ["/debug/timeseries", "/debug/dashboard",
                                   "/debug/profile"])
 def test_telemetry_routes_answer_501_naming_their_slice(path):
-    with served("port") as base:
-        status, _, body = request(base, "GET", path)
-    assert status == 501 and b"not ported" in body
+    """The telemetry ring's and the profiler's routes (no longer 501):
+    the JAX package's status and content type, and a body of the same
+    kind."""
+    got = {}
+    for side in SIDES:
+        with served(side) as base:
+            status, headers, body = request(base, "GET", path)
+        got[side] = (status, headers.get("content-type"))
+        assert status == 200 and body
+        if path != "/debug/dashboard":
+            assert isinstance(json.loads(body), dict)
+    assert got["port"] == got["ref"]
     with served("port") as base:
         assert request(base, "GET", "/debug/traces")[0] == 200
         status, _, body = request(base, "GET", "/metrics")
