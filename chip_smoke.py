@@ -143,15 +143,40 @@ fails the run with a non-zero exit:
    (one density run per setting and the joint phase): Chrome traces
    carrying the three solve sites' labels (``solve_stream_chunk``,
    ``solve_sequential``, ``solve_joint``) and ``scan.cu``'s kernel with
-   device time.
+   device time;
+19. the slice (HA shards, tenancy, defrag, the verifier), on the
+   north-star cluster (5,000 ``mixed`` nodes): (a) the tenancy north
+   star, 30,000 pods 2:1:1 over the tenant namespaces (t-a/t-b/t-c
+   weighted 2:1:1) through a ``KT_TENANTS`` daemon over a ``MemStore``
+   (with ``KT_DEFRAG`` and ``KT_VERIFY_PERIOD=0.5``, kept for c and d):
+   all bound, 0 over capacity, the shares of the first packed solves
+   within 10% of the weights; a 5,000 x 4,096 tenancy daemon on cuda and
+   cpu, every placement identical; (c) biased churn (the smallest pod
+   of every node deleted, 8 pods 100m larger than the freest node's
+   free cpu, that node's pods under a PDB with no headroom), then defrag
+   rounds whose probe is the joint solve: the large pods bound,
+   migrations executed equal completed, 0 stranded, 0 lingering
+   intents, 0 PDB violations, 0 double binds, 0 over capacity, 0
+   verifier violations, with each round's pending count and the probe's
+   wall and device time; (d) the verifier's passes with 0 violations,
+   ``readback_rows`` µs per 64-row call, one corrupted row of the
+   resident ``requested`` plane named as a ``device_row`` violation and
+   healed, a clean next pass, and 2,048 follow-up pods placed as an
+   uncorrupted twin daemon over the same state places them; (b) three
+   ``python -m kubernetes_tpu_torch.scheduler --api-server``
+   incarnations with ``KT_HA_SHARDS=8`` and a 0.45 s lease over the
+   native apiserver, 30,000 pods over 12 namespaces, one SIGKILLed after
+   a third bound: the survivors hold every shard in under 1 s, and 0
+   double binds, 0 nodeName changes, 0 unbound, 0 over capacity, with
+   each process's launches and device memory peak.
 
 Phase 2b includes the f32 route of the joint repair and topology spread:
 a non-integral score bias and an extra mask with all-false rows.  It
 prints one ``{"kernels": [...]}`` line (with each kernel's launches on
 its phase's path, in the two daemon runs of phase 9 and on the paths of
-phases 13-18), then the card line, and last ``{"ok": true, "device":
-{...}}``.  ``--bench-only`` runs phases 1 and 18 and prints no result
-lines.
+phases 13-19), then the card line, and last ``{"ok": true, "device":
+{...}}``.  ``--bench-only`` runs phases 1 and 18, ``--slice-only``
+phases 1 and 19, and neither prints the result lines.
 """
 
 from __future__ import annotations
@@ -2099,9 +2124,11 @@ class Child:
     """A child process stopped by PID, whose stderr a thread drains into
     memory (a full pipe would stall the child)."""
 
-    def __init__(self, cmd: list, stdout=subprocess.DEVNULL):
+    def __init__(self, cmd: list, stdout=subprocess.DEVNULL,
+                 env: dict | None = None):
         self.proc = subprocess.Popen(cmd, stdout=stdout,
-                                     stderr=subprocess.PIPE, text=True)
+                                     stderr=subprocess.PIPE, text=True,
+                                     env=env)
         self.pid = self.proc.pid
         self.lines: list = []
         self._drain = threading.Thread(target=self._read, daemon=True)
@@ -2848,6 +2875,892 @@ def phase_bench(nodes: int, pods: int, card: str,
     return {"paths": {k: paths[k] for k in BENCH_PATHS}, "art": art}
 
 
+# -- the HA, tenancy, defrag and verifier slice (phase 19) --------------------
+
+TENANTS = ("t-a", "t-b", "t-c")
+TENANT_WEIGHTS = {"t-a": 2.0, "t-b": 1.0, "t-c": 1.0}
+# The combined daemon of 19a, 19c and 19d: the tenancy service with the
+# defragmenter (rounds driven by the phase: a period past the run) and
+# the verifier every 0.5 s; the reference soak's backoff, gain and budget
+# (kubernetes_tpu/perf/soak.py:1834-1845), and the knob's default of 8
+# migrations a round (the soak's 4 would need two rounds for 8 pods).
+SLICE_ENV = {"KT_TENANTS": ",".join(TENANTS),
+             "KT_TENANT_WEIGHTS": "t-a:2,t-b:1,t-c:1",
+             "KT_DEFRAG": "1", "KT_DEFRAG_PERIOD_S": "3600",
+             "KT_DEFRAG_MAX_MIGRATIONS": "8", "KT_DEFRAG_MIN_GAIN": "0.2",
+             "KT_DEFRAG_BUDGET": "16", "KT_VERIFY_PERIOD": "0.5",
+             "KT_POD_BACKOFF_S": "0.1", "KT_POD_BACKOFF_MAX_S": "1"}
+DEFRAG_LARGE = 8       # 19c's large pods
+DEFRAG_ROUNDS = 10
+FOLLOW_PODS = 2048     # 19d's follow-up drain
+READBACK_ROWS = 64     # the verifier's sample (cache/verifier.py)
+HA_SHARDS = 8          # SOAK_r17.json "ha": 8 shards, 3 incarnations,
+HA_INCARNATIONS = 3    # 12 namespaces, a 0.45 s lease
+HA_NAMESPACES = 12
+HA_LEASE_S = 0.45
+TAKEOVER_BAR_S = 1.0   # the reference soak's bar
+
+
+class Env:
+    """Environment knobs set for a block and restored after it."""
+
+    def __init__(self, env: dict):
+        self.env = {k: str(v) for k, v in env.items()}
+
+    def __enter__(self):
+        import os
+        self.saved = {k: os.environ.get(k) for k in self.env}
+        os.environ.update(self.env)
+        return self
+
+    def __exit__(self, *exc):
+        import os
+        for k, v in self.saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+class BindWatch:
+    """Every pod's node off a watch stream, in a thread of this process:
+    binds, unbinds (a defrag evict-to-pending), double binds (a bound pod
+    seen bound to another node), and unbinds of ``protected`` pods."""
+
+    def __init__(self, watcher, protected: frozenset = frozenset()):
+        self.nodes: dict = {}
+        self.binds = self.unbinds = self.double_binds = 0
+        self.double_keys: list = []
+        self.protected = set(protected)
+        self.protected_unbinds: list = []
+        self._w = watcher
+        self._stop = threading.Event()
+        self._t = threading.Thread(target=self._pump, daemon=True)
+        self._t.start()
+
+    def _pump(self) -> None:
+        while not self._stop.is_set():
+            ev = self._w.next(timeout=0.2)
+            if ev is None or ev.type == "ERROR":
+                continue
+            if ev.type == "DELETED":
+                self.nodes.pop(ev.key, None)
+                continue
+            node = (ev.object.get("spec") or {}).get("nodeName") or ""
+            prev = self.nodes.get(ev.key, "")
+            if node and not prev:
+                self.binds += 1
+            elif prev and not node:
+                self.unbinds += 1
+                if ev.key in self.protected:
+                    self.protected_unbinds.append(ev.key)
+            elif node and prev and node != prev:
+                self.double_binds += 1
+                self.double_keys.append((ev.key, prev, node))
+            self.nodes[ev.key] = node
+
+    def bound(self) -> int:
+        return sum(1 for v in list(self.nodes.values()) if v)
+
+    def stop(self) -> None:
+        self._stop.set()
+        self._w.stop()
+        self._t.join(timeout=10)
+
+
+def tenant_pods(n: int, prefix: str, seed: int = 1) -> list:
+    """``n`` ``mixed`` pods split 2:1:1 over the tenant namespaces,
+    interleaved in 250-pod runs (the order the tenancy bench loads its
+    backlog in)."""
+    from kubernetes_tpu_torch.perf import synth
+    share = {"t-a": n // 2, "t-b": n // 4}
+    share["t-c"] = n - share["t-a"] - share["t-b"]
+    per = {t: synth.make_pods(k, seed=seed + i, profile="mixed",
+                              n_services=4, namespace=t,
+                              name_prefix=f"{prefix}-{t}")
+           for i, (t, k) in enumerate(share.items())}
+    out: list = []
+    while any(per.values()):
+        for t in TENANTS:
+            out += per[t][:250]
+            per[t] = per[t][250:]
+    return out
+
+
+def slice_daemon(nodes: int, pods: list, dev: str, env: dict) -> tuple:
+    """A ``ConfigFactory`` over a ``MemStore`` holding ``nodes`` ``mixed``
+    nodes and ``pods`` before ``run()``, built and run under ``env``;
+    (factory, store, packs, watch, t_run): ``packs`` records each packed
+    solve's tenant counts, ``watch`` every pod's node, ``t_run`` when the
+    store was full and the factory's construction began."""
+    from kubernetes_tpu_torch.api import types as api
+    from kubernetes_tpu_torch.apiserver.memstore import MemStore
+    from kubernetes_tpu_torch.perf import synth
+    from kubernetes_tpu_torch.scheduler.factory import ConfigFactory
+    store = MemStore()
+    for n in synth.make_nodes(nodes, profile="mixed", n_zones=4):
+        store.create("nodes", api.node_to_json(n))
+    for p in pods:
+        store.create("pods", api.pod_to_json(p))
+    watch = BindWatch(store.watch(["pods"], from_rv=store.list("pods")[1]))
+    t_run = time.perf_counter()
+    with Env(env):
+        f = ConfigFactory(store, device=dev)
+        packs: list = []
+        svc = f.tenancy
+        if svc is None:
+            fail("19: KT_TENANTS built no solver service")
+        real = svc.packer.pack
+
+        def pack(batch, cap, now=None):
+            sel, dfr = real(batch, cap, now=now)
+            packs.append(svc.count_tenants(sel))
+            return sel, dfr
+        svc.packer.pack = pack
+        f.run()
+    return f, store, packs, watch, t_run
+
+
+def time_verifier(f) -> dict:
+    """Wrap the daemon's verifier pass to add up its count and seconds
+    (read by the phase; the verifier itself is unchanged)."""
+    acc = {"passes": 0, "seconds": 0.0}
+    real = f.verifier.verify_once
+
+    def timed():
+        t0 = time.perf_counter()
+        try:
+            return real()
+        finally:
+            acc["passes"] += 1
+            acc["seconds"] += time.perf_counter() - t0
+    f.verifier.verify_once = timed
+    return acc
+
+
+def pause_verifier(f) -> None:
+    """Stop the verifier's background loop (a pass in flight finishes);
+    ``verify_once`` stays callable."""
+    f.verifier.stop()
+    for t in f._threads:
+        if t.name == "cache-verifier":
+            t.join(timeout=120)
+    f.verifier._stop.clear()
+
+
+def wait_watch_bound(watch: BindWatch, n: int, seconds: float,
+                     what: str) -> float:
+    t0 = time.perf_counter()
+    while watch.bound() < n:
+        if time.perf_counter() - t0 > seconds:
+            fail(f"{what}: {watch.bound()} of {n} pods bound in "
+                 f"{seconds} s")
+        time.sleep(0.005)
+    return time.perf_counter()
+
+
+def phase_tenancy(nodes: int, pods: int, parity_pods: int, card: str,
+                  dev: str = "cuda",
+                  density_p50: float | None = None) -> dict:
+    """19a: the tenancy north star through the slice's daemon (kept for
+    19c and 19d), then cuda against cpu on a parity rig of the same
+    shape.  (The tenancy bench, ``python -m
+    kubernetes_tpu_torch.perf.tenancy``, runs on its own: it does not fit
+    the smoke's time.)"""
+    out: dict = {}
+    label = card if dev == "cuda" else dev
+
+    # The tenancy north star on the slice's daemon.
+    plist = tenant_pods(pods, "ns")
+    zero_counts()
+    f, store, packs, watch, t0 = slice_daemon(nodes, plist, dev, SLICE_ENV)
+    t_run = time.perf_counter()
+    vtime = time_verifier(f)
+    t_last = wait_watch_bound(watch, pods, 600, "19a")
+    wall = t_last - t0
+    out["north_star"] = kernel_counts()
+    objs = store.list("pods")[0]
+    unbound = sum(1 for o in objs
+                  if not (o.get("spec") or {}).get("nodeName"))
+    over = wire_over_capacity(store.list("nodes")[0], objs)
+    if unbound or over or len(objs) != pods:
+        fail(f"19a: {len(objs)} pods, {unbound} unbound, {over} nodes over "
+             f"capacity")
+    if dev == "cuda" and out["north_star"]["scan_chunk"] < 1:
+        fail("19a: the tenancy north star launched no scan kernel")
+    # The bound shares over the first packed solves (until 45% of the
+    # backlog, where every tenant still saturates) against the weights.
+    seen = {t: 0 for t in TENANTS}
+    used = 0
+    for p in packs:
+        for t, k in p.items():
+            seen[t] = seen.get(t, 0) + k
+        used += 1
+        if sum(seen.values()) >= 0.45 * pods:
+            break
+    total = sum(seen.values()) or 1
+    wsum = sum(TENANT_WEIGHTS.values())
+    err = max(abs(seen[t] / total - TENANT_WEIGHTS[t] / wsum) /
+              (TENANT_WEIGHTS[t] / wsum) for t in TENANTS)
+    if err > 0.10:
+        fail(f"19a: shares over the first {used} packed solves {seen} "
+             f"miss the weights {TENANT_WEIGHTS} by {err:.4f}")
+    rep = f.tenancy.report()
+    if any(r["mode"] != "device" for r in rep["tenants"].values()):
+        fail(f"19a: a tenant left device mode: {rep}")
+    context = (f"; phase 18's one-shot density p50 {density_p50} s for "
+               f"context" if density_p50 is not None else "")
+    print(f"phase 19a: {label}: tenancy north star {pods} pods 2:1:1 over "
+          f"{list(TENANTS)} onto {nodes} nodes: all bound, 0 over "
+          f"capacity, {wall:.3f} s from the factory's construction to the "
+          f"last bind (run() returned after {t_run - t0:.3f} s), "
+          f"{len(packs)} packed solves (cap "
+          f"{f.daemon.degraded_drain_cap()}), launches "
+          f"{out['north_star']}; first {used} solves bound {seen} = "
+          f"shares "
+          f"{ {t: round(seen[t] / total, 4) for t in TENANTS} } against "
+          f"{ {t: round(TENANT_WEIGHTS[t] / wsum, 4) for t in TENANTS} } "
+          f"(max relative error {err:.4f}, bar 0.10); the verifier "
+          f"(every 0.5 s) ran {f.verifier.passes} passes, "
+          f"{vtime['passes']} of them after run() taking "
+          f"{vtime['seconds']:.3f} s{context}")
+    out["ctx"] = {"factory": f, "store": store, "watch": watch,
+                  "verifier_time": vtime}
+
+    # cuda against cpu on the parity rig of the same shape.
+    if parity_pods:
+        maps = {}
+        secs = {}
+        for d in (dev, "cpu") if dev == "cuda" else (dev,):
+            ppods = tenant_pods(parity_pods, "par")
+            t0 = time.perf_counter()
+            g, gstore, _, gwatch, _ = slice_daemon(
+                nodes, ppods, d, {k: SLICE_ENV[k] for k in (
+                    "KT_TENANTS", "KT_TENANT_WEIGHTS")})
+            try:
+                # Settled: every pod decided once (bound or failed) and
+                # nothing queued.
+                attempts = g.daemon.config.metrics.scheduling_attempts
+                deadline = time.perf_counter() + 900
+                while len(g.daemon.queue) or \
+                        counter_total(attempts) < parity_pods:
+                    if time.perf_counter() > deadline:
+                        fail(f"19a parity {d}: "
+                             f"{counter_total(attempts)} of {parity_pods} "
+                             f"pods decided in 900 s")
+                    time.sleep(0.05)
+                maps[d] = pod_map(gstore.list("pods")[0])
+                secs[d] = time.perf_counter() - t0
+            finally:
+                gwatch.stop()
+                g.stop()
+        if dev == "cuda" and maps["cuda"] != maps["cpu"]:
+            diff = [k for k in maps["cpu"] if maps["cpu"][k] !=
+                    maps["cuda"].get(k)]
+            fail(f"19a: the parity rig's placements differ on "
+                 f"{len(diff)} pods, e.g. {diff[:5]}")
+        bound = sum(map(bool, maps[dev].values()))
+        print(f"phase 19a: parity rig {nodes} x {parity_pods} (2:1:1): "
+              f"{bound} bound, identical on "
+              f"{' and '.join(maps)} ({', '.join(f'{d} {s:.3f} s' for d, s in secs.items())})")
+    return out
+
+
+def shard_leases(conn) -> dict:
+    """shard -> (holder, acquire stamp) of its live lease record, off the
+    apiserver over one keep-alive connection (holder "" when released or
+    never held).  The stamp is the acquirer's ``time.monotonic()`` when
+    it took the lease: one clock for every process on the host."""
+    from kubernetes_tpu_torch.scheduler.shards import shard_lock_name
+    from kubernetes_tpu_torch.utils.leaderelection import (
+        LEADER_ANNOTATION_KEY, LeaderElectionRecord)
+    out = {}
+    for s in range(HA_SHARDS):
+        conn.request("GET", f"/api/v1/namespaces/kube-system/endpoints/"
+                     f"{shard_lock_name(s)}")
+        r = conn.getresponse()
+        body = r.read()
+        out[s] = ("", 0.0)
+        if r.status != 200:
+            continue
+        raw = ((json.loads(body).get("metadata") or {})
+               .get("annotations") or {}).get(LEADER_ANNOTATION_KEY)
+        if raw:
+            rec = LeaderElectionRecord.from_json(raw)
+            if rec.lease_duration_seconds > 0:
+                out[s] = (rec.holder_identity, rec.acquire_time)
+    return out
+
+
+def debug_vars(port: int) -> dict:
+    status, body = wire_request(f"http://127.0.0.1:{port}", "GET",
+                                "/debug/vars", timeout=30)
+    if status != 200:
+        fail(f"19b: /debug/vars on {port} answered {status}")
+    return json.loads(body)
+
+
+def phase_ha(nodes: int, pods: int, card: str, dev: str = "cuda") -> dict:
+    """19b: three ``python -m kubernetes_tpu_torch.scheduler
+    --api-server`` incarnations sharded over one native apiserver (the
+    reference soak's HA wave); one SIGKILLed after a third of the pods
+    bound; the survivors take its shards and finish."""
+    import http.client
+    import os
+    from kubernetes_tpu_torch.api import types as api
+    from kubernetes_tpu_torch.client.http import APIClient
+    from kubernetes_tpu_torch.perf import synth
+
+    label = card if dev == "cuda" else dev
+    api_proc, base = start_rig_apiserver()
+    kids: dict = {}
+    watch = None
+    try:
+        node_objs = [api.node_to_json(n) for n in
+                     synth.make_nodes(nodes, profile="mixed", n_zones=4)]
+        post_bodies(base, "nodes", list_bodies(node_objs))
+        env = dict(os.environ)
+        env.update({"KT_HA_SHARDS": str(HA_SHARDS),
+                    "KT_HA_LEASE_S": str(HA_LEASE_S),
+                    "KT_HA_RENEW_S": str(HA_LEASE_S * 0.75),
+                    "KT_HA_RETRY_S": str(HA_LEASE_S / 8),
+                    "KT_PREWARM": "1",
+                    "KT_POD_BACKOFF_S": "0.1",
+                    "KT_POD_BACKOFF_MAX_S": "2"})
+        t0 = time.perf_counter()
+        for i in range(HA_INCARNATIONS):
+            name = f"inc-{i}"
+            cmd = [sys.executable, "-m", "kubernetes_tpu_torch.scheduler",
+                   "--api-server", base, "--port", "0",
+                   "--kube-api-qps", "5000", "--kube-api-burst", "5000"]
+            if dev != "cuda":
+                cmd += ["--device", dev]
+            child = Child(cmd, stdout=subprocess.PIPE, env=dict(
+                env, KT_INCARNATION=name))
+            kids[name] = child
+        ports = {}
+        for name, child in kids.items():
+            port = json.loads(child.proc.stdout.readline() or "{}") \
+                .get("port")
+            if port is None:
+                fail(f"19b: {name} did not start: {child.tail()}")
+            ports[name] = port
+        # Ready: every incarnation holds a shard and together all of them.
+        deadline = time.perf_counter() + 300
+        while True:
+            owned = {n: (debug_vars(p).get("ha") or {}).get(
+                "shardsOwned", []) for n, p in ports.items()}
+            held = set().union(*map(set, owned.values()))
+            if all(owned.values()) and held == set(range(HA_SHARDS)):
+                break
+            for name, child in kids.items():
+                if child.proc.poll() is not None:
+                    fail(f"19b: {name} exited {child.proc.returncode}: "
+                         f"{child.tail()}")
+            if time.perf_counter() > deadline:
+                fail(f"19b: shards never balanced: {owned}")
+            time.sleep(0.1)
+        ready_s = time.perf_counter() - t0
+        before = dict(owned)
+        # Launches counted from here (each process's prewarm is its own).
+        base_launches = {n: debug_vars(p)["kernelLaunches"]
+                         for n, p in ports.items()}
+        objs = []
+        for i, p in enumerate(synth.make_pods(pods, profile="mixed",
+                                              n_services=4)):
+            obj = api.pod_to_json(p)
+            obj["metadata"]["namespace"] = f"ha-ns-{i % HA_NAMESPACES}"
+            objs.append(obj)
+        bodies = list_bodies(objs)
+        rv = APIClient(base, qps=0).list("pods")[1]
+        watch = BindWatch(APIClient(base, qps=0).watch("pods", rv))
+        zero_counts()
+        shards = [bodies[i::4] for i in range(4)]
+        errors: list = []
+
+        def create(shard):
+            try:
+                post_bodies(base, "pods", shard)
+            except SystemExit as err:
+                errors.append(str(err))
+        threads = [threading.Thread(target=create, args=(s,), daemon=True)
+                   for s in shards]
+        start = time.perf_counter()
+        for t in threads:
+            t.start()
+        victim = "inc-0"
+        # A third bound, as a survivor's cache counts them (this
+        # process's own watch decodes every event and lags the burst).
+        while True:
+            bound_at_kill = debug_vars(ports["inc-1"])["cachedPods"]
+            if bound_at_kill >= pods // 3:
+                break
+            if time.perf_counter() - start > 600:
+                fail(f"19b: {watch.bound()} of {pods} bound before the "
+                     f"kill in 600 s")
+            time.sleep(0.05)
+        last = {victim: debug_vars(ports[victim])}
+        host, port = base.rpartition("/")[2].split(":")
+        conn = http.client.HTTPConnection(host, int(port), timeout=30)
+        held = {s for s, (h, _) in shard_leases(conn).items()
+                if h == victim}
+        # The takeover clock: monotonic, the clock of the leases' stamps.
+        t_kill = time.monotonic()
+        kids[victim].proc.kill()
+        survivors = {n for n in kids if n != victim}
+        taken: dict = {}
+        while True:
+            leases = shard_leases(conn)
+            for s in held:
+                h, stamp = leases[s]
+                if s not in taken and h in survivors:
+                    taken[s] = stamp
+            if all(h in survivors for h, _ in leases.values()):
+                break
+            if time.monotonic() - t_kill > 60:
+                fail(f"19b: survivors never held every shard: {leases}")
+            time.sleep(0.005)
+        polled = time.monotonic() - t_kill
+        conn.close()
+        # When the last of the victim's shards was taken, by the stamp its
+        # taker wrote (the poll adds this process's own delay on top).
+        stamped = max((taken[s] for s in held), default=t_kill) - t_kill
+        takeover = stamped if 0.0 <= stamped <= polled else polled
+        for t in threads:
+            t.join()
+        if errors:
+            fail(f"19b: pod creation failed: {errors[0]}")
+        t_last = wait_watch_bound(watch, pods, 600, "19b")
+        wall = t_last - start
+        kids[victim].proc.wait()
+        # The survivors' own views, once they agree (a rebalance between
+        # them can be mid-handoff at any one read).
+        deadline = time.perf_counter() + 60
+        while True:
+            for n in sorted(survivors):
+                last[n] = debug_vars(ports[n])
+            after = {n: last[n]["ha"]["shardsOwned"]
+                     for n in sorted(survivors)}
+            owned = [s for v in after.values() for s in v]
+            if sorted(owned) == list(range(HA_SHARDS)):
+                break
+            if time.perf_counter() > deadline:
+                fail(f"19b: the survivors hold {after}")
+            time.sleep(0.1)
+        listed = wire_list(base, "pods")
+        unbound = sum(1 for o in listed
+                      if not (o.get("spec") or {}).get("nodeName"))
+        over = wire_over_capacity(wire_list(base, "nodes"), listed)
+        time.sleep(0.5)  # late watch events of the last binds
+        if unbound or over or len(listed) != pods or \
+                watch.double_binds or watch.unbinds:
+            fail(f"19b: {len(listed)} pods, {unbound} unbound, {over} "
+                 f"nodes over capacity, {watch.double_binds} double binds "
+                 f"{watch.double_keys[:3]}, {watch.unbinds} nodeName "
+                 f"changes after a bind")
+        if takeover >= TAKEOVER_BAR_S:
+            fail(f"19b: takeover took {takeover:.3f} s (bar "
+                 f"{TAKEOVER_BAR_S} s; stamped {stamped:.3f} s, polled "
+                 f"{polled:.3f} s; shards {sorted(held)} taken at "
+                 f"{ {s: round(t - t_kill, 3) for s, t in taken.items()} }"
+                 f" s; {bound_at_kill} bound at the kill)")
+        launches = {n: {k: c - base_launches[n][k]
+                        for k, c in v["kernelLaunches"].items()}
+                    for n, v in last.items()}
+        if dev == "cuda" and any(v["scan_chunk"] < 1
+                                 for v in launches.values()):
+            fail(f"19b: an incarnation launched no scan kernel: {launches}")
+        recoveries = {n: len(last[n].get("shardRecoveries") or [])
+                      for n in sorted(survivors)}
+        print(f"phase 19b: {label}: {HA_INCARNATIONS} incarnations "
+              f"(KT_HA_SHARDS={HA_SHARDS}, lease {HA_LEASE_S} s) over the "
+              f"native apiserver, {nodes} nodes, {pods} pods over "
+              f"{HA_NAMESPACES} namespaces: ready in {ready_s:.3f} s; "
+              f"shards before {before}; {victim} SIGKILLed with "
+              f"{bound_at_kill} pods in a survivor's cache; the survivors "
+              f"held all "
+              f"{HA_SHARDS} shards {takeover:.3f} s later by the leases' "
+              f"stamps (polled {polled:.3f} s; bar {TAKEOVER_BAR_S} s; its "
+              f"shards {sorted(held)} taken at "
+              f"{ {s: round(t - t_kill, 3) for s, t in sorted(taken.items())} }"
+              f" s); after {after}; takeover reconciles "
+              f"{recoveries}; the last bind {wall:.3f} s after the first "
+              f"POST; 0 double binds, 0 nodeName changes, 0 unbound, 0 "
+              f"over capacity; scan launches "
+              f"{ {n: v['scan_chunk'] for n, v in launches.items()} }, "
+              f"device memory peak "
+              f"{ {n: v['hbmPeakBytes'] for n, v in last.items()} } "
+              f"bytes")
+        total = {k: sum(v[k] for v in launches.values())
+                 for k in ("scan_chunk", "select_rows", "select_hosts")}
+        return {"launches": total, "takeover_s": takeover, "wall": wall}
+    finally:
+        if watch is not None:
+            watch.stop()
+        for child in kids.values():
+            child.stop(30)
+        api_proc.stop()
+
+
+def pod_free(store) -> tuple[dict, dict]:
+    """(node -> [free milli-cpu, free memory, free pod slots], node ->
+    [(key, obj, request)] of its bound pods), off the store."""
+    from kubernetes_tpu_torch.api import types as api
+    from kubernetes_tpu_torch.apiserver.memstore import MemStore
+    from kubernetes_tpu_torch.scheduler.defrag import _node_capacity
+    free = {}
+    for n in store.list("nodes")[0]:
+        cap = _node_capacity(n)
+        if cap is not None:
+            free[api.key_from_json(n)] = cap
+    by_node: dict = {}
+    for o in store.list("pods")[0]:
+        node = (o.get("spec") or {}).get("nodeName") or ""
+        if not node or node not in free:
+            continue
+        req = MemStore._pod_requests(o)
+        for i in range(3):
+            free[node][i] -= req[i]
+        by_node.setdefault(node, []).append((api.key_from_json(o), o, req))
+    return free, by_node
+
+
+def phase_defrag(ctx: dict, card: str, dev: str = "cuda") -> dict:
+    """19c: biased churn on the bound north star (the smallest pod of
+    every node deleted, then large pods that fit no node's free space,
+    the freest node's pods under a PDB with no headroom), then defrag
+    rounds whose probe is the solver service's joint solve."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from kubernetes_tpu_torch.api import types as api
+    from kubernetes_tpu_torch.client import cas_update
+
+    f, store, watch = ctx["factory"], ctx["store"], ctx["watch"]
+    ctrl = f.defrag
+    label = card if dev == "cuda" else dev
+    # The verifier's passes hold the cache lock for seconds at this size:
+    # parked during the rounds (their probe's time is the phase's
+    # measurement), then one explicit pass checks the end state.
+    pause_verifier(f)
+    zero_counts()
+    free, by_node = pod_free(store)
+    deleted = 0
+    for node, plist in by_node.items():
+        if len(plist) > 1:
+            key = min(plist, key=lambda c: (c[2][0], c[0]))[0]
+            store.delete("pods", key)
+            deleted += 1
+    free, by_node = pod_free(store)
+    top = max(free, key=lambda n: (free[n][0], n))
+    protected = sorted(k for k, _, _ in by_node[top])
+    for key in protected:
+        obj = store.get("pods", key)
+        obj["metadata"].setdefault("labels", {})["kt/defrag"] = "protected"
+        cas_update(store, "pods", obj)
+    # A PDB is namespaced: one per namespace of the protected pods.
+    for ns in sorted({k.split("/")[0] for k in protected}):
+        count = sum(1 for k in protected if k.startswith(ns + "/"))
+        store.create("poddisruptionbudgets", {
+            "metadata": {"name": "defrag-pdb", "namespace": ns},
+            "spec": {"minAvailable": count,
+                     "selector": {"kt/defrag": "protected"}},
+            "status": {"disruptionAllowed": False, "currentHealthy": count,
+                       "desiredHealthy": count, "expectedPods": count}})
+    watch.protected = set(protected)
+    large_cpu = free[top][0] + 100
+    large = []
+    for k in range(DEFRAG_LARGE):
+        name = f"df-large-{k}"
+        store.create("pods", {
+            "metadata": {"name": name, "namespace": "t-a"},
+            "spec": {"containers": [{"name": "c", "resources": {
+                "requests": {"cpu": f"{large_cpu}m",
+                             "memory": "64Mi"}}}]}})
+        large.append(f"t-a/{name}")
+    if any(v[0] >= large_cpu for v in free.values()):
+        fail("19c: a large pod fits some node's free space")
+    rounds = []
+    real_probe = ctrl.probe
+    acts = [ProfilerActivity.CUDA] if dev == "cuda" else \
+        [ProfilerActivity.CPU]
+    # The profiler's first session in a process pays its own start-up;
+    # pay it here, outside the probes.
+    with profile(activities=acts):
+        (torch.ones(8, device=dev) + 1).sum().item()
+    engine = f.algorithm
+    real_batch = engine.schedule_batch
+    solve_s = [0.0]
+
+    def timed_batch(*a, **k):
+        t0 = time.perf_counter()
+        try:
+            return real_batch(*a, **k)
+        finally:
+            solve_s[0] += time.perf_counter() - t0
+
+    def timed_probe(pend):
+        solve_s[0] = 0.0
+        engine.schedule_batch = timed_batch
+        t0 = time.perf_counter()
+        try:
+            with profile(activities=acts) as prof:
+                out = real_probe(pend)
+                if dev == "cuda":
+                    torch.cuda.synchronize()
+        finally:
+            engine.schedule_batch = real_batch
+        wall = time.perf_counter() - t0
+        dev_us = sum(getattr(k, "self_device_time_total", 0.0)
+                     for k in prof.key_averages()
+                     if getattr(k, "device_type", None) == DeviceType.CUDA)
+        rounds[-1].update(pending=len(pend), probe_s=wall,
+                          solve_s=solve_s[0], device_ms=dev_us / 1e3)
+        return out
+    ctrl.probe = timed_probe
+    t_start = time.perf_counter()
+    try:
+        for rnd in range(1, DEFRAG_ROUNDS + 1):
+            rounds.append({"round": rnd})
+            rep = ctrl.run_once()
+            rounds[-1].update(rep)
+            # The live drain rebinds the migrants and, with luck, the
+            # anchors; wait for the queue to empty and every migrant to
+            # land (a blocked anchor backs off for at most 1 s).
+            deadline = time.perf_counter() + 60
+            while True:
+                inflight = ctrl.report()["inflight"]
+                migrants = [k for k in list(ctrl._inflight)
+                            if not watch.nodes.get(k)]
+                if not len(f.daemon.queue) and not migrants:
+                    break
+                if time.perf_counter() > deadline:
+                    fail(f"19c round {rnd}: {inflight} migrations never "
+                         f"rebound: {migrants[:5]}")
+                time.sleep(0.02)
+            time.sleep(1.2)  # a blocked anchor's backoff retry
+            r = rounds[-1]
+            print(f"phase 19c: round {rnd}: pending P "
+                  f"{r.get('pending', 0)}, probe "
+                  f"{r.get('probe_s', 0.0) * 1e3:.3f} ms wall (the joint "
+                  f"solve {r.get('solve_s', 0.0) * 1e3:.3f} ms of it, the "
+                  f"rest waiting for the engine), "
+                  f"{r.get('device_ms', 0.0):.3f} ms device at "
+                  f"{r.get('pending', 0)} x {len(free)}, blocked "
+                  f"{rep['blocked']}, planned {rep['planned']}, "
+                  f"migrations {rep['executed']} executed"
+                  f"{', veto ' + rep['veto'] if rep['veto'] else ''}")
+            if all(watch.nodes.get(k) for k in large) and \
+                    not ctrl.report()["inflight"]:
+                break
+        # One more round settles the last migrations (intents cleared,
+        # unblocked credited).
+        rounds.append({"round": len(rounds) + 1})
+        ctrl.run_once()
+    finally:
+        ctrl.probe = real_probe
+    secs = time.perf_counter() - t_start
+    counts = kernel_counts()
+    stats = ctrl.report()
+    objs = store.list("pods")[0]
+    unbound = [k for k, n in pod_map(objs).items() if not n]
+    intents = [api.key_from_json(o) for o in objs
+               if api.DEFRAG_MIGRATION_ANNOTATION_KEY in
+               ((o.get("metadata") or {}).get("annotations") or {})]
+    over = wire_over_capacity(store.list("nodes")[0], objs)
+    f.verifier.verify_once()
+    problems = []
+    if not all(watch.nodes.get(k) for k in large):
+        problems.append(f"large pods unbound: "
+                        f"{[k for k in large if not watch.nodes.get(k)]}")
+    if stats["migrations_executed"] != stats["migrations_completed"] or \
+            not stats["migrations_executed"]:
+        problems.append(f"migrations executed "
+                        f"{stats['migrations_executed']}, completed "
+                        f"{stats['migrations_completed']}")
+    if unbound:
+        problems.append(f"{len(unbound)} stranded: {unbound[:5]}")
+    if intents:
+        problems.append(f"lingering intents: {intents[:5]}")
+    if watch.protected_unbinds:
+        problems.append(f"PDB violations: {watch.protected_unbinds}")
+    if watch.double_binds:
+        problems.append(f"double binds: {watch.double_keys[:5]}")
+    if over:
+        problems.append(f"{over} nodes over capacity")
+    if f.verifier.violations_total:
+        problems.append(f"verifier violations "
+                        f"{f.verifier.violations_total}")
+    if dev == "cuda" and counts["scan_chunk"] < 1:
+        problems.append("no scan launch")
+    if problems:
+        fail(f"19c: {'; '.join(problems)}; stats {stats}")
+    print(f"phase 19c: {label}: churn deleted {deleted} small pods, "
+          f"{DEFRAG_LARGE} pods of {large_cpu}m (100m more than the "
+          f"freest node's {free[top][0]}m; its {len(protected)} pods "
+          f"under a PDB with no headroom) bound after "
+          f"{len(rounds) - 1} rounds in {secs:.3f} s; migrations "
+          f"{stats['migrations_executed']} executed = "
+          f"{stats['migrations_completed']} completed, "
+          f"{stats['vetoed_pdb']} PDB vetoes, {stats['unblocked']} "
+          f"unblocked; 0 stranded, 0 lingering intents, 0 PDB "
+          f"violations, 0 double binds ({watch.unbinds} evict-to-pending "
+          f"unbinds), 0 over capacity, verifier "
+          f"{f.verifier.passes} passes 0 violations; launches {counts}")
+    return {"launches": counts, "rounds": rounds}
+
+
+def phase_verifier(ctx: dict, card: str, dev: str = "cuda") -> dict:
+    """19d: the slice daemon's verifier (passes, 0 violations), the
+    readback's µs per call, one corrupted resident row named and healed,
+    a clean next pass, and a follow-up drain placing as an uncorrupted
+    daemon over the same state does."""
+    import torch
+    from kubernetes_tpu_torch.api import types as api
+    from kubernetes_tpu_torch.cache import verifier as vmod
+    from kubernetes_tpu_torch.engine.generic_scheduler import \
+        GenericScheduler
+    from kubernetes_tpu_torch.perf import synth
+    from kubernetes_tpu_torch.scheduler.binder import InMemoryBinder
+    from kubernetes_tpu_torch.scheduler.scheduler import (Scheduler,
+                                                          SchedulerConfig)
+
+    f, store, watch = ctx["factory"], ctx["store"], ctx["watch"]
+    label = card if dev == "cuda" else dev
+    v = f.verifier
+    if v.passes < 1 or v.violations_total:
+        fail(f"19d: verifier {v.passes} passes, {v.violations_total} "
+             f"violations before the corruption")
+    # The background loop is parked (19c): the passes below are the
+    # phase's own.
+    pause_verifier(f)
+    passes0 = v.passes
+    alg = f.algorithm
+    cache = alg.cache
+    # A clean pass first: the resident mirror in sync.
+    if v.verify_once():
+        fail("19d: a violation before the corruption")
+    with cache.lock:
+        if not alg.resident.in_sync(cache._nt, cache.space,
+                                    cache.tensor_epoch):
+            # A solve syncs the mirror (the placement is not assumed).
+            alg.schedule_batch(synth.make_pods(1, name_prefix="sync"))
+        n = len(cache._node_order)
+        rng = np.random.RandomState(19)
+        idx = rng.choice(n, size=min(READBACK_ROWS, n), replace=False)
+        alg.resident.readback_rows(idx)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        reps = 200
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            alg.resident.readback_rows(idx)
+        readback_us = (time.perf_counter() - t0) / reps * 1e6
+        row = min(set(range(n)) - cache._dirty_rows)
+        node = cache._node_order[row]
+        dc = alg.resident.dc
+        req = dc.requested.clone()
+        req[row, 0] += 999
+        alg.resident.dc = dc._replace(requested=req)
+    v.sample = n
+    viol = v.verify_once()
+    v.sample = vmod.DEFAULT_SAMPLE
+    named = [x for x in viol if x.kind == "device_row" and node in x.detail]
+    if not named or alg.resident.dc is not None:
+        fail(f"19d: the corrupted row of {node} was not named and healed: "
+             f"{[str(x) for x in viol]}, mirror "
+             f"{'dropped' if alg.resident.dc is None else 'kept'}")
+    # The uncorrupted twin: a daemon over the same state, built from the
+    # store, with the same round-robin counter.
+    twin_eng = GenericScheduler(device=dev)
+    for o in store.list("nodes")[0]:
+        twin_eng.cache.add_node(api.node_from_json(o))
+    for o in store.list("pods")[0]:
+        if (o.get("spec") or {}).get("nodeName"):
+            twin_eng.cache.add_pod(api.pod_from_json(o))
+    twin_eng.last_node_index = alg.last_node_index
+    twin = Scheduler(SchedulerConfig(algorithm=twin_eng,
+                                     binder=InMemoryBinder(),
+                                     async_bind=False))
+    follow = synth.make_pods(FOLLOW_PODS, seed=19, profile="mixed",
+                             n_services=4, namespace="t-a",
+                             name_prefix="follow")
+    zero_counts()
+    bound0 = watch.bound()
+    t0 = time.perf_counter()
+    for p in follow:
+        store.create("pods", api.pod_to_json(p))
+    deadline = time.perf_counter() + 300
+    keys = [p.key for p in follow]
+    while not all(watch.nodes.get(k) for k in keys) or len(f.daemon.queue):
+        if time.perf_counter() > deadline:
+            fail(f"19d: the follow-up drain bound "
+                 f"{watch.bound() - bound0} of {FOLLOW_PODS}")
+        time.sleep(0.01)
+    drain_s = time.perf_counter() - t0
+    counts = kernel_counts()
+    got = {k: watch.nodes[k] for k in keys}
+    try:
+        for p in synth.make_pods(FOLLOW_PODS, seed=19, profile="mixed",
+                                 n_services=4, namespace="t-a",
+                                 name_prefix="follow"):
+            twin.enqueue(p)
+        while len(twin.queue):
+            twin.schedule_pending(wait_first=False)
+        want = dict(twin.config.binder._bound)
+    finally:
+        twin.stop()
+    if got != want:
+        diff = [k for k in keys if got[k] != want.get(k)]
+        fail(f"19d: the healed daemon placed {len(diff)} follow-up pods "
+             f"unlike the uncorrupted twin, e.g. "
+             f"{[(k, got[k], want.get(k)) for k in diff[:3]]}")
+    clean = v.verify_once()
+    if clean:
+        fail(f"19d: the pass after the heal found {[str(x) for x in clean]}")
+    if dev == "cuda" and counts["scan_chunk"] < 1:
+        fail("19d: the follow-up drain launched no scan kernel")
+    print(f"phase 19d: {label}: verifier {passes0} passes and 0 "
+          f"violations through 19a-19c; readback_rows of "
+          f"{len(idx)} rows {readback_us:.3f} us per call; the corrupted "
+          f"requested row of {node} named ({named[0].detail}) and healed "
+          f"(mirror dropped, re-uploaded by the next drain); the next "
+          f"pass clean; {FOLLOW_PODS} follow-up pods placed in "
+          f"{drain_s:.3f} s exactly as the uncorrupted twin daemon "
+          f"placed them; launches {counts}")
+    return {"launches": counts, "readback_us": readback_us}
+
+
+def phase_slice(args, card: str, dev: str = "cuda",
+                density_p50: float | None = None) -> dict:
+    """19: the slice on the card, 19a-19d."""
+    t0 = time.perf_counter()
+
+    def done(what: str) -> None:
+        print(f"phase 19: {what} done {time.perf_counter() - t0:.3f} s "
+              f"into the phase", flush=True)
+
+    out = {}
+    a = phase_tenancy(args.nodes, args.pods, args.parity_pods, card, dev,
+                      density_p50=density_p50)
+    ctx = a.pop("ctx")
+    try:
+        out["tenancy_north_star"] = a["north_star"]
+        done("19a")
+        out["defrag"] = phase_defrag(ctx, card, dev)["launches"]
+        done("19c")
+        out["verifier"] = phase_verifier(ctx, card, dev)["launches"]
+        done("19d")
+    finally:
+        ctx["watch"].stop()
+        ctx["factory"].stop()
+    out["ha"] = phase_ha(args.nodes, args.pods, card, dev)["launches"]
+    done("19b")
+    print(f"phase 19: all of 19a-19d passed in "
+          f"{time.perf_counter() - t0:.3f} s")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--nodes", type=int, default=5000)
@@ -2870,6 +3783,9 @@ def main() -> int:
                          "no result lines")
     ap.add_argument("--bench-only", action="store_true",
                     help="build and run phase 18 only; prints no result "
+                         "lines")
+    ap.add_argument("--slice-only", action="store_true",
+                    help="build and run phase 19 only; prints no result "
                          "lines")
     args = ap.parse_args()
     t_start = time.perf_counter()
@@ -2901,9 +3817,17 @@ def main() -> int:
     if args.bench_only:
         phase_bench(args.nodes, args.pods, card)
         return 0
+    if args.slice_only:
+        phase_slice(args, card)
+        return 0
+    def stamp(done: str) -> None:
+        print(f"chip_smoke: {done} done at "
+              f"{time.perf_counter() - t_start:.3f} s", flush=True)
+
     kstats = phase_kernel(dev)
     sstats = phase_scan(dev)
     hstats = phase_select_hosts(dev)
+    stamp("phases 1-2b, 6")
     if args.kernels_only:
         return 0
     phase_parity("mixed", args.parity_nodes, args.parity_pods, CHUNK)
@@ -2912,24 +3836,36 @@ def main() -> int:
     phase_profile(args.nodes, PROFILE_PODS)
     single = phase_single(args.single_nodes, args.single_pods, card)
     phase_extender(args.extender_nodes, args.extender_probes, card)
+    stamp("phases 3-8")
     daemon = phase_daemon(args.nodes, args.pods, full, card)
     phase_factory(args.factory_nodes, args.factory_pods, card)
     phase_preemption(args.nodes, card)
     phase_guard(args.nodes, args.factory_pods, card)
+    stamp("phases 9-12")
     topo = phase_topology(args.nodes, args.topology_pods, args.pods, card)
     joint = phase_joint(args.nodes, args.pods, card)
     harness = phase_harness(card)
     rich16 = phase_rich(args.nodes, args.pods, CHUNK, card)
+    stamp("phases 13-16")
     wire17 = phase_wire_parity(args.parity_nodes, args.parity_pods, card)
     wire17.update(phase_wire_north_star(args.nodes, args.pods, card))
     phase_wire_binaries(args.binary_nodes, args.binary_pods, card)
+    stamp("phase 17")
     bench18 = phase_bench(args.nodes, args.pods, card)
+    stamp("phase 18")
+    slice19 = phase_slice(
+        args, card, density_p50=bench18["art"]["settings"]["one-shot"]
+        ["elapsed_s_p50"])
 
     def wire_launches(kernel: str) -> dict:
         out = {f"wire_{run}": wire17[run]["counts"][kernel]
                for run in ("memstore", "wire", "stream", "one-shot")}
         out.update({path: counts[kernel]
                     for path, counts in bench18["paths"].items()})
+        # Phase 19's paths: 19a's bench and north star, 19b's three
+        # incarnations (summed), 19c's rounds, 19d's follow-up drain.
+        out.update({f"slice_{path}": counts[kernel] if counts else 0
+                    for path, counts in slice19.items()})
         return out
 
     kernels_line = [{

@@ -150,12 +150,6 @@ class Listers:
         return out
 
 
-def not_ported(what: str, slice_name: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to kubernetes_tpu_torch yet ({slice_name} "
-        f"slice); use kubernetes_tpu for it")
-
-
 class GenericScheduler:
     def __init__(self, policy: Policy | None = None,
                  cache: SchedulerCache | None = None,

@@ -337,6 +337,29 @@ class ResidentCluster:
                 space.volumes.capacity, nt.taints_nosched.shape[1],
                 space.images.capacity, space.topo_keys.capacity)
 
+    def in_sync(self, nt: NodeTensors, space: FeatureSpace,
+                epoch: int) -> bool:
+        """True when the resident copy mirrors THIS host state's row
+        identity (same epoch, same shape signature) — the precondition
+        for the invariant checker's row readback to be meaningful (a
+        mirror awaiting a full re-upload legitimately differs)."""
+        return self.dc is not None and self._epoch == epoch and \
+            self._sig == self.signature(nt, space)
+
+    # The resource-truth planes the dirty-row protocol must keep equal
+    # to the host arrays (cache/verifier.py reads them back).
+    READBACK_FIELDS = ("schedulable", "alloc", "requested", "nonzero")
+
+    def readback_rows(self, idx: "np.ndarray | list[int]") -> dict:
+        """Device->host readback of the verifier's sampled rows: the four
+        resource-truth fields, one gather of k rows each, as host numpy
+        arrays.  The resident planes are wide, so no decode step."""
+        i = torch.as_tensor(np.asarray(idx, np.int64), device=self.device)
+        out = {f: getattr(self.dc, f).index_select(0, i).cpu().numpy()
+               for f in self.READBACK_FIELDS}
+        devicestats.record_transfer("readback", devicestats.nbytes(out))
+        return out
+
     def sync(self, nt: NodeTensors, agg: NodeAggregates,
              space: FeatureSpace, dirty: set[int],
              epoch: int) -> DeviceCluster:

@@ -152,7 +152,10 @@ def load_policy(opts):
 
 def _decisions_route(daemon, query: str) -> tuple[int, bytes, str]:
     """/debug/scheduler/decisions: the flight recorder's batch ring;
-    ``?pod=ns/name`` explains one pod's latest decision."""
+    ``?pod=ns/name`` explains one pod's latest decision (chosen node, or
+    per-predicate failure counts and top-scoring candidates);
+    ``?tenant=name`` filters batch summaries to one tenant's rows (the
+    multi-tenant service's per-tenant decision history)."""
     from urllib.parse import parse_qs
     recorder = daemon.config.flight_recorder
     if recorder is None:
@@ -172,12 +175,15 @@ def _decisions_route(daemon, query: str) -> tuple[int, bytes, str]:
     except ValueError:
         return (400, b'{"error": "limit must be an integer"}',
                 "application/json")
-    return (200, json.dumps(recorder.snapshot(limit=limit)).encode(),
-            "application/json")
+    tenant = q.get("tenant", [""])[0]
+    return (200, json.dumps(recorder.snapshot(
+        limit=limit, tenant=tenant)).encode(), "application/json")
 
 
 def debug_vars(factory: ConfigFactory) -> dict:
     """The /debug/vars payload."""
+    from kubernetes_tpu_torch.engine import devicestats, fused, scan
+    from kubernetes_tpu_torch.ops import combine
     from kubernetes_tpu_torch.utils.metrics import (
         CACHE_INVARIANT_VIOLATIONS, POST_PREWARM_COMPILES)
     cache = factory.algorithm.cache
@@ -197,8 +203,26 @@ def debug_vars(factory: ConfigFactory) -> dict:
         # bisect cap, gate rejects (engine/guard.py).
         "engine": factory.algorithm.guard.report(),
         "postPrewarmCompiles": POST_PREWARM_COMPILES.value,
+        # This process's kernel launches (each wrapper's own count) and
+        # the device memory peak: several daemons on one card are told
+        # apart by these.
+        "kernelLaunches": {"scan_chunk": scan.scan_chunk.launches,
+                           "select_rows": fused.select_rows.launches,
+                           "select_hosts": combine.select_hosts.launches},
+        "hbmPeakBytes": devicestats.hbm_peak_bytes(),
         "invariantViolations": CACHE_INVARIANT_VIOLATIONS.value,
         "lastRecovery": factory.last_recovery,
+        # Active-active HA (scheduler/shards.py): this incarnation's id,
+        # the shards it holds, and the recent shard-takeover reconciles;
+        # null when running single-scheduler (KT_HA_SHARDS=0).
+        "ha": (factory.shards.report()
+               if factory.shards is not None else None),
+        # The multi-tenant solver service (tenancy/): per-tenant
+        # mode/weights/trips/fault attribution; null when KT_TENANTS is
+        # unset.
+        "tenancy": (factory.tenancy.report()
+                    if factory.tenancy is not None else None),
+        "shardRecoveries": factory.shard_recoveries[-8:],
         # Client-side backpressure against a shedding apiserver
         # (utils/flowcontrol.py): the AIMD bind window and the retry
         # budget's saturation; null when the store is in-process.
@@ -260,11 +284,35 @@ def status_mux(factory: ConfigFactory, configz: dict, port: int
             elif path == "/debug/vars":
                 self._send(200, json.dumps(debug_vars(factory)).encode(),
                            "application/json")
+            elif path == "/tenancy":
+                if factory.tenancy is None:
+                    self._send(404, b"tenancy disabled")
+                else:
+                    self._send(200,
+                               json.dumps(factory.tenancy.report())
+                               .encode(), "application/json")
             else:
                 self._send(404, b"not found")
 
         def do_POST(self):
-            self._send(404, b"not found")
+            # The solver-service boundary over the daemon's existing
+            # HTTP surface: with KT_TENANTS set, other control planes
+            # POST /solve {tenant, pods:[...]} and get placements from
+            # THIS daemon's device (tenancy/service.solve_route).
+            path = self.path.partition("?")[0]
+            if path != "/solve":
+                self._send(404, b"not found")
+                return
+            if factory.tenancy is None:
+                self._send(404, b"tenancy disabled")
+                return
+            try:
+                clen = int(self.headers.get("Content-Length", "0") or 0)
+            except ValueError:
+                clen = 0
+            body = self.rfile.read(clen) if clen else b""
+            from kubernetes_tpu_torch.tenancy.service import solve_route
+            self._send(*solve_route(factory.tenancy, body))
 
     server = ThreadingHTTPServer(("127.0.0.1", port), Handler)
     threadreg.spawn(server.serve_forever, name="scheduler-status-http")

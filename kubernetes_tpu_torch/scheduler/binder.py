@@ -111,6 +111,19 @@ class APIClientBinder:
         watch then confirms the removal cluster-wide)."""
         self.client.delete("pods", pod.key)
 
+    def unbind(self, pod: api.Pod) -> None:
+        """Defrag eviction-to-pending (scheduler/defrag.py): clear
+        spec.nodeName under CAS so the pod re-enters the pending set
+        and the unassigned reflector requeues it — a migration, unlike
+        a preemption, must keep the pod alive.  The PUT applies the
+        body's resourceVersion as its precondition; a racing writer
+        surfaces as the conflict the defragmenter skips on."""
+        obj = self.client.get("pods", pod.key)
+        if obj is None:
+            raise KeyError(f"pods {pod.key} not found")
+        obj.setdefault("spec", {})["nodeName"] = ""
+        self.client.update("pods", obj)
+
     def _bind_one(self, item):
         pod, dest = item
         try:

@@ -17,17 +17,19 @@ The apiserver source is an in-process ``MemStore`` or an HTTP base URL
 (or a ready ``APIClient``) — the real process boundary: every
 list/watch/bind/status write then goes over the wire through a
 QPS/Burst rate-limited client (factory.go:77-91), binds ride the batch
-bindings subresource and events a batch sink.  What later slices bring
-each raises ``NotImplementedError`` naming its slice when it is asked
-for, and each is off by default: a shared ``solver_service`` and
-``KT_TENANTS`` (the tenancy slice), ``KT_HA_SHARDS > 0`` (the HA slice),
-``KT_DEFRAG`` (the defrag slice) and ``KT_VERIFY_PERIOD > 0`` (the
-verifier slice).
+bindings subresource and events a batch sink.  Four deployment modes,
+each off by default, are wired as the JAX package wires them:
+``KT_HA_SHARDS > 0`` (active-active HA, ``scheduler/shards.py``),
+``KT_TENANTS`` or a shared ``solver_service`` (the multi-tenant solver
+service, ``tenancy/``), ``KT_DEFRAG`` (``scheduler/defrag.py``) and
+``KT_VERIFY_PERIOD > 0`` (``cache/verifier.py``).
 """
 
 from __future__ import annotations
 
+import gc
 import threading
+import time
 from typing import Optional, Union
 
 import torch
@@ -39,8 +41,7 @@ from kubernetes_tpu_torch.cache.scheduler_cache import CLEANUP_PERIOD
 from kubernetes_tpu_torch.client.http import APIClient
 from kubernetes_tpu_torch.client.reflector import Reflector
 from kubernetes_tpu_torch.engine.generic_scheduler import (GenericScheduler,
-                                                           Listers,
-                                                           not_ported)
+                                                           Listers)
 from kubernetes_tpu_torch.scheduler.binder import APIClientBinder
 from kubernetes_tpu_torch.scheduler.scheduler import Scheduler, SchedulerConfig
 from kubernetes_tpu_torch.utils import knobs, threadreg
@@ -65,6 +66,18 @@ class MemStoreBinder:
             self.store.delete("pods", pod.key)
         except KeyError:
             pass  # already gone (watch raced the eviction)
+
+    def unbind(self, pod: api.Pod) -> None:
+        """Defrag eviction-to-pending (scheduler/defrag.py): clear
+        spec.nodeName under CAS — the pod stays alive and the
+        unassigned reflector's set-transition requeues it."""
+        obj = self.store.get("pods", pod.key)
+        if obj is None:
+            raise KeyError(f"pods {pod.key} not found")
+        obj.setdefault("spec", {})["nodeName"] = ""
+        self.store.update("pods", obj,
+                          expected_rv=(obj.get("metadata") or {})
+                          .get("resourceVersion"))
 
 
 def make_event_sink(source: Union[MemStore, APIClient]):
@@ -123,7 +136,8 @@ class ConfigFactory:
     unthrottled client gated by a drop-on-saturation bucket, the
     broadcaster's behavior under pressure (record/event.go).  ``device``
     is the engine's device (``"cuda"`` by default; ``"cpu"`` must be
-    asked for)."""
+    asked for); a solver-service client (``solver_service=``) owns no
+    engine and ignores it."""
 
     def __init__(self, store: Union[MemStore, APIClient, str],
                  policy: Optional[Policy] = None,
@@ -132,23 +146,26 @@ class ConfigFactory:
                  qps: float = 50.0, burst: int = 100, token: str = "",
                  tls=None, device: "str | torch.device | None" = "cuda",
                  ha_shards: Optional[int] = None,
-                 solver_service=None):
-        if solver_service is not None:
-            raise not_ported("the solver-service client mode", "tenancy")
-        if (knobs.get_int("KT_HA_SHARDS") if ha_shards is None
-                else ha_shards) > 0:
-            raise not_ported("active-active HA (KT_HA_SHARDS > 0)", "HA")
-        if knobs.get("KT_TENANTS"):
-            raise not_ported("the multi-tenant solver service "
-                             "(KT_TENANTS)", "tenancy")
+                 incarnation: str = "", solver_service=None,
+                 tenant: str = ""):
         if isinstance(store, str):
             store = APIClient(store, qps=qps, burst=burst, token=token,
                               tls=tls)
         self.store = store
         self.listers = Listers()
-        self.algorithm = GenericScheduler(policy=policy,
-                                          listers=self.listers,
-                                          device=device)
+        if solver_service is not None:
+            # Solver-service CLIENT mode: this daemon owns no device —
+            # its solve verbs submit to a shared SolverService (or a
+            # SolverClient speaking the HTTP /solve surface), tagged
+            # with this daemon's tenant; cache feeding, assume/bind,
+            # and failure handling stay local (tenancy/service.py).
+            from kubernetes_tpu_torch.tenancy.service import ServiceEngine
+            self.algorithm = ServiceEngine(solver_service, tenant=tenant,
+                                           listers=self.listers)
+        else:
+            self.algorithm = GenericScheduler(policy=policy,
+                                              listers=self.listers,
+                                              device=device)
         if isinstance(store, APIClient):
             binder = APIClientBinder(store)
             events_client = store.clone(qps=0)
@@ -176,10 +193,66 @@ class ConfigFactory:
         # Startup reconciliation report (scheduler/recovery.py), served
         # on /debug/vars; None until run() completes the pass.
         self.last_recovery: Optional[dict] = None
+        # Resident-state invariant checker (cache/verifier.py) and the
+        # continuous rebalancing loop (scheduler/defrag.py); constructed
+        # by run() behind KT_VERIFY_PERIOD and KT_DEFRAG.
+        self.verifier = None
+        self.defrag = None
         # Decision-latency SLO burn monitor (scheduler/slo.py); started
         # by run() at KT_SLO_PERIOD cadence, reported on /debug/vars.
         from kubernetes_tpu_torch.scheduler.slo import SLOMonitor
         self.slo = SLOMonitor()
+        # Active-active HA (scheduler/shards.py): KT_HA_SHARDS > 0 runs
+        # this incarnation as one of several over the same apiserver,
+        # scheduling only pods in shards whose lease it holds.  0 (the
+        # default) is the single-scheduler mode.
+        import uuid
+
+        if ha_shards is None:
+            ha_shards = knobs.get_int("KT_HA_SHARDS")
+        self.shards = None
+        # Bounded log of shard-takeover reconciles (served on
+        # /debug/vars next to lastRecovery).
+        self.shard_recoveries: list[dict] = []
+        # Multi-tenant solver service (KT_TENANTS, tenancy/): this
+        # daemon's engine becomes a shared service — the pipeline packs
+        # cross-tenant batches under weighted fairness, attributes
+        # faults per tenant (per-tenant breakers; a tripped tenant's
+        # pods requeue until its probe succeeds), and the bind path
+        # records {tenant=}-labeled SLO metrics.  Unset = single-owner
+        # engine.
+        from kubernetes_tpu_torch import tenancy as tenancy_mod
+        self.tenancy = None
+        if solver_service is None and tenancy_mod.enabled():
+            from kubernetes_tpu_torch.tenancy.service import SolverService
+            self.tenancy = SolverService(
+                engine=self.algorithm,
+                ladder_fn=self.daemon.effective_ladder,
+                urgent_s_fn=lambda:
+                    self.daemon.pipeline.former.deadline_s)
+            self.daemon.tenancy_service = self.tenancy
+        if ha_shards > 0:
+            from kubernetes_tpu_torch.scheduler.shards import ShardManager
+            incarnation = incarnation or \
+                knobs.get("KT_INCARNATION") or \
+                f"scheduler-{uuid.uuid4().hex[:8]}"
+            lease_s = knobs.get_float("KT_HA_LEASE_S")
+            # Lease clients must not compete with the drain loop for the
+            # main client's rate budget: a QPS-starved renew loses a
+            # healthy incarnation its shards mid-storm.
+            lease_client = store.clone(qps=0) \
+                if isinstance(store, APIClient) else store
+            self.shards = ShardManager(
+                lease_client, incarnation=incarnation,
+                n_shards=ha_shards,
+                lease_duration=lease_s,
+                renew_deadline=knobs.get_float(
+                    "KT_HA_RENEW_S", default=lease_s * 2 / 3),
+                retry_period=knobs.get_float(
+                    "KT_HA_RETRY_S", default=lease_s / 6),
+                on_acquired=self._on_shard_acquired,
+                on_lost=self._on_shard_lost)
+            self.daemon.owns_pod = self.shards.owns_pod
 
     # -- reflector handlers (factory.go:128-227) -------------------------
 
@@ -209,6 +282,14 @@ class ConfigFactory:
             ns = meta.get("namespace")
             key = f"{ns}/{meta.get('name')}" if ns else meta.get("name", "")
             self.daemon.queue.delete(key)
+            return
+        if self.shards is not None and not _is_terminated(obj) and \
+                not self.shards.owns_namespace(
+                    meta.get("namespace", "default")):
+            # Another incarnation's shard: enqueue() would drop the pod,
+            # so skip the parse (two thirds of the pending stream with
+            # three incarnations, all of it reflector time the shard
+            # leases' thread competes with).
             return
         pod = api.pod_from_json(obj)
         if _is_terminated(obj):
@@ -334,19 +415,103 @@ class ConfigFactory:
         except Exception:  # noqa: BLE001 — condition update is best-effort
             pass
 
+    # -- active-active HA (scheduler/shards.py) ---------------------------
+
+    def _shard_ns_test(self, shard: int):
+        from kubernetes_tpu_torch.scheduler.shards import shard_of
+        n = self.shards.n_shards
+        return lambda ns: shard_of(ns, n) == shard
+
+    def _on_shard_acquired(self, shard: int, handoff: bool) -> None:
+        """Takeover reconcile BEFORE draining the shard: relist, adopt
+        the dead incarnation's landed binds, requeue its orphans (see
+        recovery.reconcile_shard for the safety argument).  Runs on the
+        shard manager's callback thread.  Retried on failure — a chaos
+        cut (or a flaky apiserver) killing THIS relist would otherwise
+        strand the shard's backlog until the periodic sweep; the sweep
+        is the backstop, not the plan."""
+        from kubernetes_tpu_torch.scheduler import recovery
+        last_err = None
+        for attempt in range(3):
+            try:
+                report = recovery.reconcile_shard(
+                    self.daemon, self.store, shard,
+                    self._shard_ns_test(shard),
+                    scheduler_name=self.daemon.config.scheduler_name,
+                    # Assumes minted since we won this lease are the
+                    # live drain loop (the queue gate opened with the
+                    # ownership flip, before this callback ran) — only
+                    # pre-acquisition leftovers are stale.  The cutoff
+                    # and the clock it is compared under must share a
+                    # base, so both come from the shard manager.
+                    assumed_before=self.shards.acquired_at(shard),
+                    now=self.shards.now)
+                break
+            except Exception as err:  # noqa: BLE001 — retry the relist
+                last_err = err
+                time.sleep(0.2 * (attempt + 1))
+        else:
+            log.warning("shard %d takeover reconcile failed after "
+                        "retries (%s); the periodic ownership sweep "
+                        "will converge it", shard, last_err)
+            return
+        report["handoff"] = handoff
+        self.shard_recoveries.append(report)
+        del self.shard_recoveries[:-32]
+
+    def _shard_sweep_loop(self, period: float,
+                          stale_assume_s: float) -> None:
+        """The convergence backstop: periodically re-derive every OWNED
+        shard's backlog from one relist.  Any pod a race dropped — an
+        event delivered while the shard was unowned, a takeover relist
+        lost to chaos, a backoff requeue shed mid-handoff — is picked
+        up here at the latest; the enqueue path dedupes (a pod already
+        queued, bound, or freshly assumed is skipped), so the sweep is
+        idempotent."""
+        from kubernetes_tpu_torch.scheduler import recovery
+        while not self._stop.wait(period):
+            if self.shards is None or not self.shards.owned():
+                continue
+            try:
+                report = recovery.reconcile_shard(
+                    self.daemon, self.store, -1,
+                    self.shards.owns_namespace,
+                    scheduler_name=self.daemon.config.scheduler_name,
+                    # Shards we are actively draining: a YOUNG assume
+                    # is a live in-flight bind (leave it alone); one
+                    # older than any healthy bind round-trip is a leak
+                    # to repair (forget + requeue — the CAS keeps a
+                    # still-racing duplicate safe).
+                    min_assume_age_s=stale_assume_s)
+                if report["requeued"] or report["expired"]:
+                    log.info("ownership sweep repaired state: %s",
+                             report)
+            except Exception:  # noqa: BLE001 — next sweep retries
+                log.exception("ownership sweep failed; retrying next "
+                              "period")
+
+    def _on_shard_lost(self, shard: int) -> None:
+        """Shed a lost shard: drop its queued pods (the new owner's
+        takeover relist covers them) and forget our optimistic assumes
+        there, releasing the phantom capacity.  In-flight binds are NOT
+        chased — the apiserver CAS settles those races."""
+        in_shard = self._shard_ns_test(shard)
+        dropped = self.daemon.queue.delete_matching(
+            lambda pod: in_shard(pod.namespace))
+        forgotten = self.algorithm.cache.forget_pods_matching(
+            lambda pod: in_shard(pod.namespace))
+        if dropped or forgotten:
+            log.info("shard %d lost: dropped %d queued pod(s), forgot "
+                     "%d assume(s)", shard, dropped, len(forgotten))
+
     # -- lifecycle -------------------------------------------------------
 
     def run(self) -> "ConfigFactory":
         """f.Run (factory.go:387-416) + scheduler.Run: the reflectors,
         then (in order) the prewarm under KT_PREWARM, the startup
-        reconciliation, the SLO monitor, the daemon loop and the
-        assume-TTL sweep."""
-        if knobs.get_float("KT_VERIFY_PERIOD") > 0:
-            raise not_ported("the resident-state verifier "
-                             "(KT_VERIFY_PERIOD > 0)", "verifier")
-        if knobs.get_bool("KT_DEFRAG"):
-            raise not_ported("background defragmentation (KT_DEFRAG)",
-                             "defrag")
+        reconciliation, the SLO monitor, the verifier, the defragmenter,
+        the shard leases with their ownership sweep, the daemon loop and
+        the assume-TTL sweep."""
         specs = [
             # The reference's two fielded pod informers (factory.go:
             # 128-149, 466-469): the queue side never sees assigned-pod
@@ -373,8 +538,17 @@ class ConfigFactory:
         if knobs.get_bool("KT_PREWARM"):
             # Build the kernels and launch each at every ladder bucket
             # before the queue opens (opt-in: interactive rigs keep their
-            # startup latency).
-            self.daemon.prewarm()
+            # startup latency).  With tenancy on, the warm batches span
+            # the tenant namespaces: the selector-spread group axis is
+            # per-namespace, so the first cross-tenant packed batch
+            # would otherwise grow that capacity past what the
+            # single-namespace warmup ran.
+            samples = None
+            if self.tenancy is not None:
+                samples = [api.Pod(name=f"__warm-tenant-{i}",
+                                   namespace=t)
+                           for i, t in enumerate(self.tenancy.tenants)]
+            self.daemon.prewarm(sample_pods=samples)
         if knobs.get_bool("KT_RECOVERY"):
             # Crash-safe restart: reconcile cache + queue against one
             # store relist (re-adopt bound pods, requeue orphans, expire
@@ -387,6 +561,61 @@ class ConfigFactory:
         slo_period = knobs.get_float("KT_SLO_PERIOD")
         if slo_period > 0:
             self._threads.append(self.slo.run(period=slo_period))
+        verify_period = knobs.get_float("KT_VERIFY_PERIOD")
+        if verify_period > 0:
+            # Resident-state invariant checker (cache/verifier.py): a
+            # low-frequency background cross-check of cache aggregates vs
+            # the device-resident tensors vs apiserver truth, self-healing
+            # by full re-snapshot on mismatch.
+            from kubernetes_tpu_torch.cache.verifier import Verifier
+            self.verifier = Verifier(
+                self.algorithm.cache, resident=self.algorithm.resident,
+                truth=lambda: self.store.list("pods")[0])
+            self._threads.append(self.verifier.run(period=verify_period))
+        if knobs.get_bool("KT_DEFRAG"):
+            # Always-on defragmentation (scheduler/defrag.py): dry joint
+            # solves over the bound state propose bounded, PDB-vetoed
+            # migration batches.  With tenancy on the probe rides the
+            # SolverService's low-priority background lane (the joint
+            # solve on the card) so defrag never steals device time from
+            # live drains; without it the controller's host-side
+            # feasibility walk stands in.
+            from kubernetes_tpu_torch.scheduler.defrag import \
+                DefragController
+            probe = None
+            if self.tenancy is not None:
+                probe = lambda pods: self.tenancy.submit_background(  # noqa: E731
+                    pods, joint=True)
+            self.defrag = DefragController(self.daemon, self.store,
+                                           probe=probe,
+                                           verifier=self.verifier)
+            self._threads.append(self.defrag.run())
+        if self.shards is not None:
+            # Shard leases start AFTER reflectors sync and the full
+            # startup reconcile: each acquisition's takeover relist then
+            # lands on a warm cache, and the drain loop below only ever
+            # sees pods in shards this incarnation actually holds.
+            self.shards.run()
+            self._threads.extend(self.shards.threads)
+            sweep_s = knobs.get_float("KT_HA_SWEEP_S")
+            stale_assume_s = knobs.get_float("KT_HA_STALE_ASSUME_S")
+            if sweep_s > 0:
+                self._threads.append(threadreg.spawn(
+                    self._shard_sweep_loop,
+                    args=(sweep_s, stale_assume_s),
+                    name="shard-ownership-sweep"))
+        # Freeze the startup heap (torch and this package's modules, the
+        # synced cache) out of the cyclic collector's reach, as the
+        # extender does: every generation-2 collection would otherwise
+        # walk it and stall an in-flight drain for 100-200 ms, the tail
+        # of a trickle pod's bind latency.  Objects created while
+        # serving are collected as before; stop() and abandon() unfreeze
+        # (a process that runs several daemons gets their cycles back).
+        t_gc = time.perf_counter()
+        gc.collect()
+        gc.freeze()
+        log.info("froze the startup heap (%d objects) in %.3f s",
+                 gc.get_freeze_count(), time.perf_counter() - t_gc)
         self._threads.append(self.daemon.run(batched=self.batched))
 
         def ttl_sweep():  # cleanupAssumedPods (cache.go:309-330)
@@ -398,10 +627,19 @@ class ConfigFactory:
 
     def stop(self) -> None:
         self._stop.set()
+        if self.shards is not None:
+            # Release the leases FIRST so peers take over within a
+            # retry period instead of waiting out the lease duration.
+            self.shards.stop()
         for r in self._reflectors:
             r.stop()
         self.slo.stop()
+        if self.verifier is not None:
+            self.verifier.stop()
+        if self.defrag is not None:
+            self.defrag.stop()
         self.daemon.stop()
+        gc.unfreeze()
         sink = getattr(self.daemon.config.recorder, "_sink", None)
         close = getattr(sink, "close", None)
         if close is not None:
@@ -414,7 +652,19 @@ class ConfigFactory:
         would leave it.  The next incarnation's startup reconciliation
         cleans up (scheduler/recovery.py)."""
         self._stop.set()
+        if self.shards is not None:
+            # No lease release: a kill -9 leaves the shard leases to
+            # expire on their own — the survivors' takeover clock.
+            self.shards.abandon()
         for r in self._reflectors:
             r.stop()
         self.slo.stop()
+        if self.verifier is not None:
+            self.verifier.stop()
+        if self.defrag is not None:
+            # Thread stops, but in-flight migration intents stay on the
+            # store exactly as a kill -9 leaves them — the next
+            # incarnation's reconcile requeues or clears them.
+            self.defrag.stop()
         self.daemon.abandon()
+        gc.unfreeze()

@@ -20,7 +20,11 @@ modes:
 Every dispatch runs under the device guard's recovery ladder
 (``_solve``).  This package has no host engine, so an open breaker
 surfaces the fault to ``drain()``'s crash handler, which requeues the
-batch.  Not here yet: the multi-tenant packing (the tenancy slice).
+batch.  With the multi-tenant solver service attached
+(``daemon.tenancy_service``) the former over-pops, the packer bounds the
+solve at one warm bucket under weighted fairness, and ``_solve_tenants``
+attributes device faults per tenant; a tenant whose breaker is open has
+its pods requeued with backoff, never placed on the CPU.
 
 Commit-side semantics (assume-before-bind per pod, flight-recorder
 feeds, preemption, failure requeue) stay on the daemon, which the
@@ -69,8 +73,16 @@ class DrainPipeline:
             guard.ladder_fn = daemon.effective_ladder
 
     def _former_cap(self) -> int:
-        """The degraded drain cap."""
-        return self.daemon.degraded_drain_cap()
+        """The degraded drain cap.  With tenancy on the former over-pops
+        (4x the solve cap) so the cross-tenant packer sees past the
+        FIFO head — a flood tenant's pods dominate the queue front, and
+        fair selection needs candidates from the quiet tenants behind
+        them; the packer then caps the SOLVE back to one warm bucket
+        and defers the rest."""
+        cap = self.daemon.degraded_drain_cap()
+        if self.daemon.tenancy_service is not None:
+            return cap * 4
+        return cap
 
     # -- the single drain entry path -------------------------------------
 
@@ -84,6 +96,18 @@ class DrainPipeline:
         pods = batch.pods
         if not pods:
             return 0
+        svc = daemon.tenancy_service
+        if svc is not None:
+            # Cross-tenant packing: bound every solve at one warm
+            # ladder bucket and fill it urgency-first then by weighted
+            # share (tenancy/packer.py); the remainder returns to the
+            # queue with its SLO stamps intact.  Degradation still
+            # wins: the former already shed to a bounded pop above.
+            selected, deferred = svc.packer.pack(
+                pods, daemon.degraded_drain_cap())
+            for pod in deferred:
+                daemon.queue.add(pod)
+            pods = batch.pods = selected
         # The batch root span is backdated to cover the wait: queue_wait
         # (blocking pop + deadline batch formation) is the pipeline's
         # first stage, even though the batch only existed at its end.
@@ -152,9 +176,7 @@ class DrainPipeline:
         daemon = self.daemon
         pods = batch.pods
         if daemon.tenancy_service is not None:
-            raise NotImplementedError(
-                "multi-tenant packing is not ported to kubernetes_tpu_torch "
-                "yet (tenancy slice)")
+            return self._solve_tenants(pods, tr, trace_id)
         guard = getattr(daemon.config.algorithm, "guard", None)
         if guard is None or not guard.enabled:
             return self._dispatch(pods, tr, trace_id)
@@ -185,6 +207,127 @@ class DrainPipeline:
                 if action == ACT_SURFACE:
                     break
         raise fault  # breaker open or ladder exhausted: requeue
+
+    def _solve_tenants(self, pods: list, tr: Optional[Trace],
+                       trace_id: str) -> int:
+        """The multi-tenant solve path: per-tenant breaker routing,
+        mixed-batch fault ATTRIBUTION by per-tenant split, and
+        per-tenant accounting — one tenant's poison batch opens that
+        tenant's breaker; the service and the other tenants stay on
+        device.
+
+        A ``lost`` fault still escalates the GLOBAL guard (a dead card
+        is not one tenant's fault) and OOM still runs the global
+        eviction/bisect-cap ladder; the per-tenant breaker owns the
+        ATTRIBUTABLE kinds (a tenant's poison readbacks, its repeated
+        OOM-sized batches) — it trips at KT_TENANT_BREAKER consecutive
+        faults, before the global breaker's threshold can.
+
+        Where the JAX package decides on its host engine (the global
+        breaker open, an open tenant, a tripped or lost remainder), this
+        package places nothing: the global case surfaces the breaker's
+        fault to ``drain()``'s crash handler, which requeues the whole
+        batch; a tenant's pods requeue with backoff (``_requeue_held``)
+        until its probe re-promotes it."""
+        daemon = self.daemon
+        svc = daemon.tenancy_service
+        guard = getattr(daemon.config.algorithm, "guard", None)
+        guard_on = guard is not None and guard.enabled
+        total = len(pods)
+        gmode = guard.solve_mode() if guard_on else "device"
+        if gmode == "open":
+            # Whole-device outage (global breaker open, no probe due):
+            # requeue without touching the card.
+            raise guard.breaker_fault()
+        device_pods, held_pods, probing = svc.partition(pods)
+        if held_pods:
+            for t, group in zip(svc.tenants_of(held_pods),
+                                svc.split_by_tenant(held_pods)):
+                self._requeue_held(t, group, svc.breaker_fault(t))
+        if device_pods:
+            # One solver at a time on the shared engine: the service's
+            # packed submits (remote control planes) and this drain
+            # must not race GenericScheduler's solve state.
+            with svc.engine_lock:
+                self._solve_tenant_groups(
+                    device_pods, probing, gmode, tr, trace_id)
+        return total
+
+    def _requeue_held(self, tenant: str, pods: list, fault) -> None:
+        """Surface ``fault`` for an open-breaker tenant's pods: each
+        requeues through the backoff path (condition + event + delayed
+        retry), as ``drain()``'s crash handler does for a surfaced
+        batch."""
+        self.daemon.tenancy_service.note_requeued(tenant, len(pods))
+        for pod in pods:
+            self.daemon._handle_failure(pod, "SchedulingError",
+                                        f"device fault: {fault}",
+                                        result="error")
+
+    def _solve_tenant_groups(self, device_pods: list, probing: set,
+                             gmode: str, tr: Optional[Trace],
+                             trace_id: str) -> None:
+        """The device section of a tenant drain (caller holds the
+        service's engine lock): dispatch, attribution splits, and the
+        per-tenant breaker routing."""
+        from collections import deque
+
+        from kubernetes_tpu_torch.chaos import device as chaos_device
+        from kubernetes_tpu_torch.engine import devicestats
+        from kubernetes_tpu_torch.engine.guard import KIND_LOST, KIND_OOM
+        daemon = self.daemon
+        svc = daemon.tenancy_service
+        guard = getattr(daemon.config.algorithm, "guard", None)
+        guard_on = guard is not None and guard.enabled
+        # Transfer attribution covers the device section only.
+        transfers0 = sum(devicestats.transfer_snapshot().values())
+        groups = deque([device_pods])
+        rounds = 0
+        budget = (guard.max_rounds if guard_on else 1) + \
+            len(svc.tenants) + 2
+        while groups:
+            group = groups.popleft()
+            tenants_g = svc.tenants_of(group)
+            try:
+                with chaos_device.tenant_context(tenants_g):
+                    self._dispatch(group, tr, trace_id)
+                if guard_on:
+                    guard.note_success(probe=(gmode == "probe"))
+                for t in tenants_g:
+                    svc.note_success(t, probe=(t in probing))
+            except DeviceFault as f:
+                rounds += 1
+                remaining = self._uncommitted(group)
+                if not remaining:
+                    continue
+                if rounds > budget:
+                    raise  # crash handler requeues — never drops
+                tenants_r = svc.tenants_of(remaining)
+                if len(tenants_r) > 1:
+                    # Attribution bisection: split per tenant and
+                    # re-solve each alone — the culprit's solo batch
+                    # keeps faulting and trips ITS breaker.
+                    svc.note_split(f)
+                    groups.extend(svc.split_by_tenant(remaining))
+                    log.warning("device fault [%s] on a %d-tenant "
+                                "batch: split per tenant for "
+                                "attribution", f.kind, len(tenants_r))
+                    continue
+                tenant = tenants_r[0]
+                tripped = svc.note_fault(tenant, f.kind,
+                                         probe=(tenant in probing))
+                surface = tripped or f.kind == KIND_LOST
+                if guard_on and f.kind in (KIND_LOST, KIND_OOM):
+                    action = guard.recover(
+                        f, can_bisect=self._can_bisect(remaining))
+                    surface = surface or action == ACT_SURFACE
+                if surface:
+                    self._requeue_held(tenant, remaining, f)
+                else:
+                    groups.append(remaining)
+        svc.record_solve(
+            device_pods, sum(devicestats.transfer_snapshot().values())
+            - transfers0)
 
     def _uncommitted(self, pods: list) -> list:
         """The stranded remainder of a faulted dispatch: pods a

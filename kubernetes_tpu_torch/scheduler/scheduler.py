@@ -185,8 +185,18 @@ class Scheduler:
         # leftovers (pods deleted while pending) are pruned when the
         # registry outgrows its bound.
         self._first_seen: dict[str, float] = {}
-        # The multi-tenant solver service's attachment point (the tenancy
-        # slice); None = the single-owner engine, the only mode here.
+        # Active-active HA hook (scheduler/shards.py): when set, this
+        # incarnation enqueues only pods whose namespace shard it holds
+        # — the queue feed, the backoff requeue worker, and the
+        # cross-shard 409 counter all consult it.  None = own everything
+        # (the single-scheduler default).
+        self.owns_pod: Optional[Callable[[api.Pod], bool]] = None
+        # Multi-tenant solver service (tenancy/service.py), attached by
+        # the factory when KT_TENANTS is set (or by a rig): the drain
+        # pipeline then packs cross-tenant batches under weighted
+        # fairness, routes per-tenant breakers, and the bind path
+        # attributes per-tenant SLO metrics.  None = the single-owner
+        # engine.
         self.tenancy_service = None
         self._stop = threading.Event()
         self._bind_threads: list[threading.Thread] = []
@@ -229,6 +239,12 @@ class Scheduler:
         return pod.scheduler_name == self.config.scheduler_name
 
     def enqueue(self, pod: api.Pod) -> None:
+        if self.owns_pod is not None and not self.owns_pod(pod):
+            # Sharded HA: another incarnation holds this namespace's
+            # shard lease; its owner schedules it.  Takeover relists
+            # (recovery.reconcile_shard) re-deliver anything dropped
+            # here if the shard later becomes ours.
+            return
         if self.responsible_for(pod) and not pod.node_name:
             # Admission timestamp for the e2e decision-latency SLO
             # (first-seen -> bind ack): the registry keeps the EARLIEST
@@ -304,7 +320,10 @@ class Scheduler:
             if self.config.flight_recorder is not None:
                 self.config.flight_recorder.record_batch(
                     [pod], [dest], trace_id=root.trace_id,
-                    duration_s=algo_us / 1e6)
+                    duration_s=algo_us / 1e6,
+                    tenants=(self.tenancy_service.count_tenants([pod])
+                             if self.tenancy_service is not None
+                             else None))
             self._assume_and_bind(pod, dest, start)
             return True
         finally:
@@ -369,7 +388,11 @@ class Scheduler:
                         if t > cutoff}
         recorder.record_batch(pods, placements, trace_id=trace_id,
                               duration_s=duration_s,
-                              failure_detail=detail)
+                              failure_detail=detail,
+                              tenants=(self.tenancy_service
+                                       .count_tenants(pods)
+                                       if self.tenancy_service is not None
+                                       else None))
 
     def _assume_and_bind_batch(self, pods: list[api.Pod],
                                placements: list, start: float,
@@ -556,12 +579,14 @@ class Scheduler:
         """The keys ``prewarm()`` will run for THIS daemon's
         configuration — static introspection, no device.  Mirrors
         ``prewarm()``'s own no-op conditions (StreamingDrain gate off,
-        extenders configured, empty cluster -> [])."""
+        extenders configured, empty cluster, or a solver-service client
+        that owns no device -> [])."""
         from kubernetes_tpu_torch.utils.featuregate import \
             DEFAULT_FEATURE_GATE
         alg = self.config.algorithm
         if not DEFAULT_FEATURE_GATE.enabled("StreamingDrain") or \
-                alg.extenders or not alg.cache.nodes():
+                alg.extenders or not alg.cache.nodes() or \
+                alg.device is None:
             return []
         return prewarm_plan(
             self.effective_ladder(), cuda=alg.device.type == "cuda",
@@ -581,9 +606,10 @@ class Scheduler:
         ``sample_pods`` shapes the warm batches (vocab capacities +
         content flags) like the expected workload; without it minimal
         synthetic pods are used.  Returns {bucket: seconds}; no-ops when
-        streaming is off, an extender is configured, or the cluster is
-        empty.  Chaos injection is suppressed for the duration (there is
-        no recovery ladder above prewarm), and the kernel-build watchdog
+        streaming is off, an extender is configured, the cluster is
+        empty, or the engine is a solver-service client (no device).
+        Chaos injection is suppressed for the duration (there is no
+        recovery ladder above prewarm), and the kernel-build watchdog
         arms at the end."""
         import contextlib as _contextlib
 
@@ -594,7 +620,8 @@ class Scheduler:
             DEFAULT_FEATURE_GATE
         alg = self.config.algorithm
         if not DEFAULT_FEATURE_GATE.enabled("StreamingDrain") or \
-                alg.extenders or not alg.cache.nodes():
+                alg.extenders or not alg.cache.nodes() or \
+                alg.device is None:
             return {}
         devicestats.disarm()
         cuda = alg.device.type == "cuda"
@@ -788,7 +815,14 @@ class Scheduler:
     # -- internals --------------------------------------------------------
 
     def _record_bind_failure(self, err) -> str:
-        return _record_bind_failure(err)
+        """The module-level classifier plus the HA plane's cross-shard
+        accounting: a CAS conflict observed while running sharded means
+        another incarnation (or a chaos rule) bound the pod first —
+        near-zero in steady state, bursty during lease handoffs."""
+        result = _record_bind_failure(err)
+        if result == "bind_conflict" and self.owns_pod is not None:
+            metrics_mod.CROSS_SHARD_CONFLICTS.inc()
+        return result
 
     def _forget_quietly(self, pod: api.Pod) -> None:
         """Forget a failed bind's optimistic assume; tolerates the pod
@@ -851,6 +885,9 @@ class Scheduler:
             metrics_mod.E2E_DECISION_LATENCY.observe(
                 (now - seen) * 1e6,
                 exemplar=trace_mod.current_trace_id())
+        if self.tenancy_service is not None:
+            self.tenancy_service.record_bound(
+                pod, (now - seen) if seen is not None else None)
         self._first_seen.pop(pod.key, None)
         self.config.metrics.scheduling_attempts.labels(
             result="scheduled").inc()
@@ -925,11 +962,15 @@ class Scheduler:
         # The batch's trace id rides along as the bucket exemplar: a bad
         # p99 bucket then names the exact trace to pull from the ring.
         tid = trace_mod.current_trace_id()
+        svc = self.tenancy_service
         for pod in bound_pods:
             seen = first_seen(pod)
             if seen is not None:
                 metrics_mod.E2E_DECISION_LATENCY.observe(
                     (done - seen) * 1e6, exemplar=tid)
+            if svc is not None:
+                svc.record_bound(
+                    pod, (done - seen) if seen is not None else None)
             self._first_seen.pop(pod.key, None)
         if ok:
             self.config.metrics.scheduling_attempts.labels(
@@ -976,4 +1017,11 @@ class Scheduler:
                     continue
                 heapq.heappop(self._requeue_heap)
             pod.node_name = ""
+            if self.owns_pod is not None and not self.owns_pod(pod):
+                # The shard moved while this pod sat in backoff: its new
+                # owner schedules it (the takeover relist already
+                # requeued it there); re-adding here would race two
+                # incarnations on one pod as the steady state.
+                self._first_seen.pop(pod.key, None)
+                continue
             self.queue.add(pod)

@@ -153,15 +153,60 @@ REGISTRY: dict[str, tuple[str, str]] = {
     "KT_WIRE_ACCUM": (
         "", "density_wire batch-formation deadline in ms (default: the "
             "setting's, 20 for stream, 3,000 for one-shot)"),
-    # -- options of later slices: each raises NotImplementedError when
-    # set (scheduler/factory.py)
-    "KT_HA_SHARDS": ("0", "Namespace-hash shard count (HA slice)"),
-    "KT_TENANTS": ("", "Tenant set of the solver service (tenancy "
-                       "slice)"),
-    "KT_DEFRAG": ("0", "Background defragmentation (defrag slice)"),
     "KT_VERIFY_PERIOD": (
-        "0", "Resident-state invariant checker cadence (verifier "
-             "slice)"),
+        "0", "Resident-state invariant checker cadence in seconds (0 = "
+             "off)"),
+    # -- active-active HA (scheduler/shards.py)
+    "KT_HA_SHARDS": (
+        "0", "Namespace-hash shard count; >0 enables active-active HA"),
+    "KT_INCARNATION": (
+        "", "Stable incarnation identity (default: random "
+            "scheduler-<hex>)"),
+    "KT_HA_LEASE_S": ("3.0", "Shard lease duration in seconds"),
+    "KT_HA_RENEW_S": (
+        "", "Lease renew deadline (default KT_HA_LEASE_S * 2/3)"),
+    "KT_HA_RETRY_S": (
+        "", "Lease acquisition retry period (default KT_HA_LEASE_S / 6)"),
+    "KT_HA_SWEEP_S": (
+        "10", "Periodic ownership-sweep reconcile cadence in seconds (0 = "
+              "off)"),
+    "KT_HA_STALE_ASSUME_S": (
+        "3", "Sweep-side assume age past any healthy bind round-trip"),
+    # -- the multi-tenant solver service (tenancy/)
+    "KT_TENANTS": (
+        "", "Comma-separated tenant set; non-empty embeds the "
+            "SolverService"),
+    "KT_TENANT_WEIGHTS": (
+        "", "Weighted shares, 't-a:3,t-b:1' (default 1.0 each)"),
+    "KT_TENANT_BREAKER": (
+        "2", "Consecutive per-tenant faults before that tenant's breaker "
+             "opens (its pods requeue until a probe succeeds)"),
+    "KT_TENANT_PROBE_S": (
+        "10", "Per-tenant device probe cadence while its breaker is open"),
+    "KT_TENANT_PACK_MS": ("5", "Packed-submit coalescing window in ms"),
+    "KT_TENANT_URGENT_MS": (
+        "", "Urgency-lane queue-age override in ms (default: the "
+            "formation deadline)"),
+    # -- continuous rebalancing (scheduler/defrag.py)
+    "KT_DEFRAG": (
+        "0", "Background defragmentation loop (scheduler/defrag.py): dry "
+             "joint solves over the bound state propose bounded migration "
+             "batches"),
+    "KT_DEFRAG_PERIOD_S": (
+        "30", "Defrag round cadence in seconds (a round = settle in-flight "
+              "migrations, probe-solve the blocked set, plan + execute a "
+              "batch)"),
+    "KT_DEFRAG_MAX_MIGRATIONS": (
+        "8", "Hard cap on migrations executed per defrag round (window); a "
+             "plan is trimmed to it before the gain gate"),
+    "KT_DEFRAG_MIN_GAIN": (
+        "0.5", "Cost-model floor: projected placements unblocked per "
+               "migration; a batch below it is vetoed (recorded "
+               "vetoed-by-budget)"),
+    "KT_DEFRAG_BUDGET": (
+        "16", "Disruption budget: max evicted-but-not-yet-rebound pods "
+              "allowed in flight at once; new batches are vetoed while it "
+              "is spent"),
 }
 
 _TRUE = ("1", "true", "yes", "on")

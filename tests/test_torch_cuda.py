@@ -6,10 +6,12 @@ select kernel (``kt_select_hosts``) against ``select_hosts_plain``, and
 drains, single-pod decisions, extender responses, the scheduler daemon
 (also over HTTP against the port's apiserver, pod for pod against the
 daemon over a ``MemStore``), the bench's density rig, the preemption victim solve, the topology spread planes and drain, the
-joint solve's price iteration and placements, and the rich sums
+joint solve's price iteration and placements, the rich sums
 (ImageLocality, the inter-pod priority counts, ``Solver.evaluate`` and a
-rich drain) at f32 matmul precision "highest" and "high", on ``cuda``
-against the same on ``cpu``, and a real CUDA out-of-memory error
+rich drain) at f32 matmul precision "highest" and "high", a
+``KT_TENANTS`` daemon and a defragmenter round with the joint probe, on
+``cuda`` against the same on ``cpu``, the resident cluster's row
+readback against the host arrays, and a real CUDA out-of-memory error
 through the device guard.  They skip themselves where
 there is no CUDA device; on the card run ``python -m pytest
 tests/test_torch_cuda.py -m cuda -q --noconftest``.  This file imports no
@@ -556,3 +558,130 @@ def test_cuda_bench_density_matches_cpu(cuda, monkeypatch, setting):
     assert runs["cuda"].device["post_prewarm_compiles"] == 0
     assert runs["cuda"].device["launches"]["scan_chunk"] >= 1
     assert runs["cpu"].device["launches"]["scan_chunk"] == 0
+
+
+@pytest.mark.cuda
+def test_cuda_tenancy_daemon_matches_cpu(cuda, monkeypatch):
+    """A ``KT_TENANTS`` daemon over a ``MemStore`` (``mixed`` 500 nodes
+    x 1,026 pods over three tenant namespaces, weighted 2:1:1, pending
+    before the first drain: over-popped, packed at 256 pods, deferred)
+    binds every pod on ``cuda`` where it does on ``cpu``.  Unschedulable
+    pods back off for longer than the test runs."""
+    from kubernetes_tpu_torch.apiserver.memstore import MemStore
+    from kubernetes_tpu_torch.scheduler.factory import ConfigFactory
+    from torch_wire import store_nodes, wait_settled
+    monkeypatch.setenv("KT_TENANTS", "t-a,t-b,t-c")
+    monkeypatch.setenv("KT_TENANT_WEIGHTS", "t-a:2,t-b:1,t-c:1")
+    monkeypatch.setenv("KT_POD_BACKOFF_S", "600")
+    nodes = [api.node_to_json(n)
+             for n in synth.make_nodes(500, profile="mixed", n_zones=4)]
+    pods = []
+    for i, t in enumerate(("t-a", "t-b", "t-c")):
+        pods += [api.pod_to_json(p) for p in synth.make_pods(
+            342, seed=i + 1, profile="mixed", n_services=4, namespace=t)]
+    out = {}
+    for dev in ("cuda", "cpu"):
+        store = MemStore()
+        for obj in nodes:
+            store.create("nodes", obj)
+        for obj in pods:
+            store.create("pods", obj)
+        f = ConfigFactory(store, device=dev)
+        f.daemon.degraded_drain_cap = lambda: 256
+        f.run()
+        try:
+            # Settled: the queue is empty and the bound count has not
+            # moved for a while (a 256-pod drain on the CPU takes about
+            # a second).
+            out[dev] = wait_settled(
+                lambda: store_nodes(store) if not len(f.daemon.queue)
+                else {}, 600, quiet=3.0)
+            assert f.tenancy.report()["packedSolves"] == 0
+            assert all(r["mode"] == "device" for r in
+                       f.tenancy.report()["tenants"].values())
+        finally:
+            f.stop()
+    assert out["cuda"] == out["cpu"]
+    assert sum(map(bool, out["cuda"].values())) > len(pods) // 2
+
+
+@pytest.mark.cuda
+def test_cuda_readback_rows_match_the_host_arrays(cuda):
+    """``ResidentCluster.readback_rows`` on the card returns the host
+    arrays' rows after a drain's assumes were scattered in."""
+    eng, pods = synth.make_rig(2000, 3000, profile="mixed", device="cuda")
+    for pod, dest in zip(pods, eng.schedule_batch(pods)):
+        if dest is not None:
+            eng.cache.assume_pod(pod, dest)
+    eng.schedule_batch(pods[:16])
+    c = eng.cache
+    assert eng.resident.in_sync(c._nt, c.space, c.tensor_epoch)
+    idx = np.random.RandomState(1).choice(2000, size=64, replace=False)
+    got = eng.resident.readback_rows(idx)
+    host = {"schedulable": c._nt.schedulable, "alloc": c._nt.alloc,
+            "requested": c._agg.requested, "nonzero": c._agg.nonzero}
+    for f in host:
+        assert np.array_equal(got[f], np.asarray(host[f])[idx]), f
+
+
+@pytest.mark.cuda
+def test_cuda_defrag_round_matches_cpu(cuda):
+    """A defragmenter round whose probe is the solver service's joint
+    solve (24 price steps, then the repair through the scan kernel) on a
+    fragmented fleet — 400 1-cpu nodes each full with two 300m pods, 24
+    pending 600m pods — reports and evicts on ``cuda`` exactly as on
+    ``cpu``."""
+    from kubernetes_tpu_torch.apiserver.memstore import MemStore
+    from kubernetes_tpu_torch.engine.generic_scheduler import \
+        GenericScheduler
+    from kubernetes_tpu_torch.scheduler.defrag import DefragController
+    from kubernetes_tpu_torch.scheduler.factory import MemStoreBinder
+    from kubernetes_tpu_torch.scheduler.scheduler import (Scheduler,
+                                                          SchedulerConfig)
+    from kubernetes_tpu_torch.tenancy.service import SolverService
+
+    def pod_json(name, cpu, node=""):
+        d = {"metadata": {"name": name, "namespace": "default"},
+             "spec": {"containers": [{"name": "c", "resources": {
+                 "requests": {"cpu": cpu}}}]}}
+        if node:
+            d["spec"]["nodeName"] = node
+        return d
+
+    out = {}
+    for dev in ("cuda", "cpu"):
+        store = MemStore()
+        algo = GenericScheduler(device=dev)
+        for i in range(400):
+            node = {"metadata": {"name": f"n{i}", "labels": {
+                        "kubernetes.io/hostname": f"n{i}"}},
+                    "status": {"allocatable": {"cpu": "1",
+                                               "memory": "64Gi",
+                                               "pods": "110"},
+                               "conditions": [{"type": "Ready",
+                                               "status": "True"}]}}
+            store.create("nodes", node)
+            algo.cache.add_node(api.node_from_json(node))
+            for j in range(2):
+                obj = pod_json(f"s{i}-{j}", "300m", f"n{i}")
+                store.create("pods", obj)
+                algo.cache.add_pod(api.pod_from_json(obj))
+        for b in range(24):
+            store.create("pods", pod_json(f"big{b}", "600m"))
+        d = Scheduler(SchedulerConfig(algorithm=algo,
+                                      binder=MemStoreBinder(store),
+                                      async_bind=False))
+        svc = SolverService(engine=algo, tenants=["default"])
+        ctrl = DefragController(
+            d, store,
+            probe=lambda p, svc=svc: svc.submit_background(p, joint=True))
+        try:
+            rep = ctrl.run_once()
+            pods = {o["metadata"]["name"]: o["spec"].get("nodeName", "")
+                    for o in store.list("pods")[0]}
+            out[dev] = (rep, ctrl.report(), pods)
+        finally:
+            d.stop()
+    assert out["cuda"] == out["cpu"]
+    assert out["cuda"][0]["blocked"] == 24
+    assert out["cuda"][0]["executed"] >= 1

@@ -440,12 +440,19 @@ def test_prewarm_runs_its_plan_and_arms_the_build_watchdog():
 
 
 def test_factory_refuses_what_later_slices_bring(monkeypatch):
+    """Nothing is refused any more: an HTTP source becomes a rate-limited
+    APIClient with the wire binder, and each deployment mode the last
+    slice brought (the solver-service client, KT_HA_SHARDS, KT_TENANTS,
+    KT_DEFRAG, KT_VERIFY_PERIOD) constructs and runs on a MemStore with
+    device="cpu", binding the pods it is given."""
     from kubernetes_tpu_torch.apiserver.memstore import MemStore
     from kubernetes_tpu_torch.client.http import APIClient
     from kubernetes_tpu_torch.scheduler.binder import APIClientBinder
     from kubernetes_tpu_torch.scheduler.factory import ConfigFactory
-    # An HTTP source is no longer refused: a URL becomes a rate-limited
-    # APIClient with the wire binder (nothing is contacted before run()).
+    from kubernetes_tpu_torch.tenancy.service import (ServiceEngine,
+                                                      SolverService)
+    # An HTTP source: a URL becomes a rate-limited APIClient with the
+    # wire binder (nothing is contacted before run()).
     f = ConfigFactory("http://127.0.0.1:1", device="cpu", qps=7, burst=9)
     try:
         assert isinstance(f.store, APIClient)
@@ -453,21 +460,82 @@ def test_factory_refuses_what_later_slices_bring(monkeypatch):
         assert isinstance(f.daemon.config.binder, APIClientBinder)
     finally:
         f.stop()
-    with pytest.raises(NotImplementedError, match="tenancy"):
-        ConfigFactory(MemStore(), device="cpu", solver_service=object())
-    with pytest.raises(NotImplementedError, match="HA"):
-        ConfigFactory(MemStore(), device="cpu", ha_shards=2)
-    monkeypatch.setenv("KT_TENANTS", "t-a,t-b")
-    with pytest.raises(NotImplementedError, match="tenancy"):
-        ConfigFactory(MemStore(), device="cpu")
-    monkeypatch.delenv("KT_TENANTS")
-    for knob, value, slice_name in (("KT_DEFRAG", "1", "defrag"),
-                                    ("KT_VERIFY_PERIOD", "2", "verifier")):
+
+    def bind_all(store, f, ns: str, n: int = 6) -> None:
+        for i in range(n):
+            store.create("pods", {
+                "metadata": {"name": f"p{i}", "namespace": ns},
+                "spec": {"containers": [{"name": "c", "resources": {
+                    "requests": {"cpu": "100m"}}}]}})
+        f.run()
+        _wait(lambda: all(store.get("pods", f"{ns}/p{i}")["spec"]
+                          .get("nodeName") for i in range(n)),
+              30, f"{ns} pods bound")
+
+    def fresh_store():
+        store = MemStore()
+        for i in range(3):
+            store.create("nodes", {
+                "metadata": {"name": f"n{i}", "labels": {
+                    "kubernetes.io/hostname": f"n{i}"}},
+                "status": {"allocatable": {"cpu": "4", "memory": "8Gi",
+                                           "pods": "110"},
+                           "conditions": [{"type": "Ready",
+                                           "status": "True"}]}})
+        return store
+
+    # The solver-service client mode: no device of its own.
+    host_store = fresh_store()
+    host = ConfigFactory(host_store, device="cpu")
+    client = ConfigFactory(host_store, device="cpu", tenant="t-a",
+                           solver_service=SolverService(
+                               engine=host.algorithm, tenants=["t-a"]))
+    try:
+        assert isinstance(client.algorithm, ServiceEngine)
+        host.run()
+        bind_all(host_store, client, "t-a")
+    finally:
+        client.stop()
+        host.stop()
+    # Active-active HA, one incarnation holding every shard.
+    store = fresh_store()
+    f = ConfigFactory(store, device="cpu", ha_shards=2, incarnation="i0")
+    try:
+        assert f.shards is not None and f.daemon.owns_pod is not None
+        bind_all(store, f, "ha")
+        _wait(lambda: f.shards.owned() == frozenset({0, 1}), 30,
+              "the lone incarnation to hold both shards")
+    finally:
+        f.stop()
+    # The multi-tenant solver service, the defragmenter, the verifier.
+    for knob, value in (("KT_TENANTS", "t-a,t-b"), ("KT_DEFRAG", "1"),
+                        ("KT_VERIFY_PERIOD", "0.2")):
         monkeypatch.setenv(knob, value)
-        f = ConfigFactory(MemStore(), device="cpu")
+        store = fresh_store()
+        f = ConfigFactory(store, device="cpu")
         try:
-            with pytest.raises(NotImplementedError, match=slice_name):
-                f.run()
+            bind_all(store, f, "t-b")
+            assert {"KT_TENANTS": f.tenancy, "KT_DEFRAG": f.defrag,
+                    "KT_VERIFY_PERIOD": f.verifier}[knob] is not None
         finally:
             f.stop()
         monkeypatch.delenv(knob)
+
+
+def test_factory_freezes_its_startup_heap_until_stop():
+    """``run()`` collects and freezes the startup heap before the drain
+    loop starts (a generation-2 collection then skips it); ``stop()``
+    unfreezes it."""
+    import gc
+
+    from kubernetes_tpu_torch.apiserver.memstore import MemStore
+    from kubernetes_tpu_torch.scheduler.factory import ConfigFactory
+    gc.unfreeze()
+    f = ConfigFactory(MemStore(), device="cpu")
+    try:
+        assert gc.get_freeze_count() == 0
+        f.run()
+        assert gc.get_freeze_count() > 0
+    finally:
+        f.stop()
+    assert gc.get_freeze_count() == 0

@@ -74,6 +74,11 @@ def test_port_sources_import_no_jax_and_no_reference_package():
             "utils/telemetry.py",
             "utils/profiling.py", "utils/debugmux.py",
             "utils/knobs.py"} <= names
+    # The HA, tenancy, defrag and verifier slice.
+    assert {"scheduler/shards.py", "tenancy/__init__.py",
+            "tenancy/packer.py", "tenancy/service.py",
+            "scheduler/defrag.py", "cache/verifier.py",
+            "perf/tenancy.py"} <= names
     bad = {str(f.relative_to(REPO)): [m for m in _imports(f)
                                       if _forbidden(m)]
            for f in files}

@@ -177,8 +177,11 @@ def test_unschedulable_then_capacity_frees():
             wait_until(lambda: store.get("pods", "default/huge")["spec"]
                        .get("nodeName") == "huge-node", 60,
                        "the huge pod to bind on the new node")
-            reasons = {e.get("reason") for e in store.list("events")[0]}
-            assert {"FailedScheduling", "Scheduled"} <= reasons
+            # The daemon posts its events through an asynchronous batch
+            # sink, after the bind the store already shows.
+            wait_until(lambda: {"FailedScheduling", "Scheduled"} <= {
+                e.get("reason") for e in store.list("events")[0]}, 30,
+                "the FailedScheduling and Scheduled events")
         finally:
             f.stop()
 
