@@ -42,7 +42,7 @@ fails the run with a non-zero exit:
    feasible and infeasible; then timed per call at N = 5,000, P = 1
    (CUDA-graph replay);
 7. single pod at full width: ``schedule(pod)`` then ``assume_pod`` for
-   the 512 pods of a 5,000-node ``mixed`` rig plus one pod that fits
+   the 256 pods of a 5,000-node ``mixed`` rig plus one pod that fits
    nowhere, on ``cuda`` and on ``cpu``: placements, counter and the
    FitError map identical; microseconds per decision on the card, the
    kernel's launches, a split of a decision into ``_compile``,
@@ -63,7 +63,7 @@ fails the run with a non-zero exit:
    metrics 0 crashed pods, 0 device faults and 0 refused binds; wall,
    pods/s, assume/bind time and the kernels' launches of each run;
 10. factory: ``ConfigFactory`` over a ``MemStore`` holding 5,000 nodes
-   and 4,096 pods before ``run()``, on cuda and on cpu, every pod's
+   and 2,048 pods before ``run()``, on cuda and on cpu, every pod's
    nodeName identical, with the time from ``run()`` to the last bind and
    ``last_recovery``; then ``python -m kubernetes_tpu_torch.scheduler
    --device cuda --port 0`` answers /healthz and /configz and exits 0 on
@@ -94,7 +94,7 @@ fails the run with a non-zero exit:
    passes every predicate at batch start, no node over capacity, and a
    split (evaluate, 24 price iterations, order and permutation, the
    repair scan, readback, assume/bind);
-15. harnesses: ``perf/parity.run_parity`` (1,000 x 10,000 ``rich``, 200
+15. harnesses: ``perf/parity.run_parity`` (1,000 x 10,000 ``rich``, 100
    sampled decisions, one one-shot scan launch) on the card with at
    least 99% agreement with the oracle, then ``run_preemption_parity``
    and ``gang_bench`` at their defaults with no partial gang bound;
@@ -106,7 +106,7 @@ fails the run with a non-zero exit:
    maximum, no two pods of one required anti-affinity group on one
    host: 0 of each allowed); a second drain split into ``_compile``,
    the hoist, the term lists, the scan and the readback; the term axes;
-   and about 200 sampled decisions against the oracle (``perf/parity``,
+   and about 100 sampled decisions against the oracle (``perf/parity``,
    at least 99% agreement);
 17. the daemon over the wire: (a) 5,000 ``mixed`` nodes and 4,096 pods
    created in ``python -m kubernetes_tpu_torch.apiserver`` before the
@@ -128,8 +128,9 @@ fails the run with a non-zero exit:
    with 0;
 18. the port's bench (``python -m kubernetes_tpu_torch.perf.bench``, its
    ``main`` called in process) at the north star, 5,000 ``mixed`` nodes
-   x 30,000 pods, with only the repeats cut: 3 density runs and 1 wire
-   run (the native apiserver) per setting (``stream``, ``one-shot``),
+   x 30,000 pods, with only the repeats cut: 2 density runs and 1 wire
+   run (the native apiserver) per setting (``stream``, ``one-shot``), its
+   ``fleet`` phase off (``BENCH_FLEET=0``: phase 20b runs the fleet),
    the serving rows with a 5 s trickle, joint and workloads at the
    reference's sizes.  Every density and wire run binds all 30,000
    pods, 0 zero-bound and 0 failed wire runs, 0 kernel builds after a
@@ -150,7 +151,7 @@ fails the run with a non-zero exit:
    weighted 2:1:1) through a ``KT_TENANTS`` daemon over a ``MemStore``
    (with ``KT_DEFRAG`` and ``KT_VERIFY_PERIOD=0.5``, kept for c and d):
    all bound, 0 over capacity, the shares of the first packed solves
-   within 10% of the weights; a 5,000 x 4,096 tenancy daemon on cuda and
+   within 10% of the weights; a 5,000 x 2,048 tenancy daemon on cuda and
    cpu, every placement identical; (c) biased churn (the smallest pod
    of every node deleted, 8 pods 100m larger than the freest node's
    free cpu, that node's pods under a PDB with no headroom), then defrag
@@ -168,15 +169,47 @@ fails the run with a non-zero exit:
    native apiserver, 30,000 pods over 12 namespaces, one SIGKILLed after
    a third bound: the survivors hold every shard in under 1 s, and 0
    double binds, 0 nodeName changes, 0 unbound, 0 over capacity, with
-   each process's launches and device memory peak.
+   each process's launches and device memory peak;
+20. the kubemark control plane (kubemark-500: 500 hollow kubelets of 64
+   CPU, 128 GiB and 110 pods, one RC of 2,000 replicas at 50m), every
+   component joined through list/watch, in a fresh interpreter: (b) ``perf/harness.fleet_metrics
+   (device="cuda")`` at the reference's defaults (a 10 s heartbeat), with
+   the reference test's bars: all Running, at least 90% of the nodes
+   used, at most 20 pods per node, full resync under 1,000 ms, idle dirty
+   pass under 50 ms, 5-200 heartbeat writes/s, no node over capacity,
+   scan launches; (a) a fleet of that shape whose seeded replication
+   manager creates the replicas while no scheduler runs,
+   drained by ``ConfigFactory(device="cuda")`` and, on a twin store
+   holding a deep copy of the same objects, on the CPU: every pod's node
+   and the round-robin counter identical; then one fleet-sized chunk
+   (2,000 x 500) at the plan's cluster size timed with CUDA events
+   against its bound and held against the step loop bit for bit; (c) on
+   20a's fleet, its kubelets beating every 0.6 s, the node lifecycle
+   controller on the reference fixture's clocks (grace 1.2 s, eviction
+   1 s, sync 0.3 s), a Service with the
+   endpoints controller and a hollow proxy; 50 kubelets stopped: their
+   nodes Ready=Unknown, their pods evicted, replaced by the replication
+   manager and bound by the daemon on the card to survivors, all 2,000
+   Running again, none on a dead node, none over capacity, the Endpoints
+   equal to the Running pods' addresses and the proxy's table to them;
+   (d) the native apiserver, ``python -m kubernetes_tpu_torch.scheduler
+   --api-server URL`` on the card, 8 ``python -m kubernetes_tpu_torch.
+   kubelet`` and one ``python -m kubernetes_tpu_torch.proxy`` as
+   processes, the replication manager and the node controller in this
+   process over ``APIClient``: 200 replicas Running, one kubelet
+   SIGKILLed and its pods rescheduled, the daemon's ``/debug/vars``
+   counting its scan launches, every process stopped (also on failure).
 
 Phase 2b includes the f32 route of the joint repair and topology spread:
 a non-integral score bias and an extra mask with all-false rows.  It
 prints one ``{"kernels": [...]}`` line (with each kernel's launches on
 its phase's path, in the two daemon runs of phase 9 and on the paths of
-phases 13-19), then the card line, and last ``{"ok": true, "device":
-{...}}``.  ``--bench-only`` runs phases 1 and 18, ``--slice-only``
-phases 1 and 19, and neither prints the result lines.
+phases 13-20; ``scan_chunk``'s carries phase 20a's fleet chunk), then the
+card line, and last ``{"ok": true, "device": {...}}``.  ``--bench-only``
+runs phases 1 and 18, ``--slice-only`` phases 1 and 19 (neither prints
+the result lines), ``--fleet-only`` phases 1 and 20 and prints the
+phase's record as its last line: the whole smoke runs phase 20 so, in a
+fresh interpreter.
 """
 
 from __future__ import annotations
@@ -1203,6 +1236,7 @@ def zero_counts() -> None:
     from kubernetes_tpu_torch.ops import combine
     fused.select_rows.launches = scan.scan_chunk.launches = 0
     combine.select_hosts.launches = 0
+    scan.scan_chunk.plans.clear()
 
 
 def kernel_counts() -> dict:
@@ -1528,6 +1562,9 @@ def phase_preemption(nodes: int, card: str) -> dict:
           f"{HBM_BYTES_PER_S:.3g} B/s); cuda == cpu exactly")
     return {"eager_ms": eager_ms, "graph_ms": graph_ms,
             "bound_ms": bound_ms}
+
+
+GUARD_PODS = 4096  # phase 12's daemon drain under the chaos cadence
 
 
 def phase_guard(nodes: int, pods: int, card: str) -> None:
@@ -1966,13 +2003,18 @@ def phase_joint(nodes: int, pods: int, card: str) -> dict:
             "price_bound_ms": b_ms}
 
 
+# Phase 15's oracle sample: 100 decisions (200 took ~38 s to replay in
+# one process), cut in depth to make room for phase 20.
+HARNESS_SAMPLES = 100
+
+
 def phase_harness(card: str) -> dict:
     """15: the oracle replay at 1,000 x 10,000 ``rich`` on the card, then
     the preemption parity and the gang bench at their defaults."""
     from kubernetes_tpu_torch.perf import parity, workloads
 
     zero_counts()
-    rec = parity.run_parity(1000, 10000, seed=0, n_samples=200,
+    rec = parity.run_parity(1000, 10000, seed=0, n_samples=HARNESS_SAMPLES,
                             profile="rich", device="cuda")
     launches = kernel_counts()
     if rec["decision_agreement_pct"] < 99.0:
@@ -2046,6 +2088,11 @@ def rich_safety(sched, pods: list, out: list) -> dict:
     }
 
 
+# Phase 16's oracle sample: 100 decisions (200 took 170 s of the smoke's
+# 1,200 s to replay; cut in depth to make room for phase 20).
+RICH_SAMPLES = 100
+
+
 def phase_rich(nodes: int, pods: int, chunk: int, card: str) -> dict:
     """16: the rich north star through the scan kernel: launches, the
     safety checks, a split drain, the term axes and sampled oracle
@@ -2085,7 +2132,7 @@ def phase_rich(nodes: int, pods: int, chunk: int, card: str) -> dict:
     workers = min(8, os.cpu_count() or 1)
     rec = parity.judge(synth.make_nodes(nodes, profile="rich", n_zones=4),
                        plist, synth.make_services(4), out, seed=0,
-                       n_samples=200, workers=workers)
+                       n_samples=RICH_SAMPLES, workers=workers)
     if rec["decision_agreement_pct"] < 99.0:
         fail(f"rich north star: oracle agreement "
              f"{rec['decision_agreement_pct']}% < 99%: "
@@ -2743,9 +2790,12 @@ def phase_bench(nodes: int, pods: int, card: str,
     os.makedirs(out_dir, exist_ok=True)
     out = os.path.join(out_dir, "BENCH_cuda.json")
     env = {"BENCH_NODES": str(nodes), "BENCH_PODS": str(pods),
-           "BENCH_PROFILE": "mixed", "BENCH_DENSITY_RUNS": "3",
+           "BENCH_PROFILE": "mixed", "BENCH_DENSITY_RUNS": "2",
            "BENCH_WIRE": "1", "BENCH_WIRE_RUNS": "1", "BENCH_JOINT": "1",
-           "BENCH_WORKLOADS": "1", "BENCH_SERVING": "1"}
+           "BENCH_WORKLOADS": "1", "BENCH_SERVING": "1",
+           # Phase 20b runs fleet_metrics at the same size: cut here so
+           # the fleet does not run twice.
+           "BENCH_FLEET": "0"}
     zero_counts()
     t0 = time.perf_counter()
     art = run_bench(env, ["--device", dev, "--out", out,
@@ -2757,7 +2807,8 @@ def phase_bench(nodes: int, pods: int, card: str,
         fail(f"18: the artifact names {art.get('backend')!r} "
              f"{art.get('card')!r}, not {dev} {want_card!r}")
     for setting, block in art["settings"].items():
-        if block["scheduled_runs"] != [pods] * 3:
+        if block["scheduled_runs"] != [pods] * int(
+                env["BENCH_DENSITY_RUNS"]):
             fail(f"18: density {setting} bound {block['scheduled_runs']}")
     wire = art["wire"]["settings"]
     for setting, block in wire.items():
@@ -3196,7 +3247,7 @@ def debug_vars(port: int) -> dict:
     status, body = wire_request(f"http://127.0.0.1:{port}", "GET",
                                 "/debug/vars", timeout=30)
     if status != 200:
-        fail(f"19b: /debug/vars on {port} answered {status}")
+        fail(f"/debug/vars on {port} answered {status}")
     return json.loads(body)
 
 
@@ -3731,6 +3782,11 @@ def phase_verifier(ctx: dict, card: str, dev: str = "cuda") -> dict:
     return {"launches": counts, "readback_us": readback_us}
 
 
+# 19a's cuda-against-cpu tenancy rig: 2,048 pods (at 4,096 its cpu side
+# took 29-43 s), cut in depth to make room for phase 20.
+TENANCY_PARITY_PODS = 2048
+
+
 def phase_slice(args, card: str, dev: str = "cuda",
                 density_p50: float | None = None) -> dict:
     """19: the slice on the card, 19a-19d."""
@@ -3741,7 +3797,7 @@ def phase_slice(args, card: str, dev: str = "cuda",
               f"into the phase", flush=True)
 
     out = {}
-    a = phase_tenancy(args.nodes, args.pods, args.parity_pods, card, dev,
+    a = phase_tenancy(args.nodes, args.pods, TENANCY_PARITY_PODS, card, dev,
                       density_p50=density_p50)
     ctx = a.pop("ctx")
     try:
@@ -3761,6 +3817,703 @@ def phase_slice(args, card: str, dev: str = "cuda",
     return out
 
 
+# -- the kubemark control plane (phase 20) -----------------------------------
+
+# kubemark-500 (docs/proposals/kubemark.md, upstream's kubemark-500 job; the
+# reference's perf/harness.py:fleet_metrics defaults): 500 hollow nodes of
+# 64 CPU, 128 GiB and 110 pods, one RC of 2,000 replicas at 50m.
+FLEET_NODES = 500
+FLEET_REPLICAS = 2000
+FLEET_RC = "fleet-load"
+FLEET_SEED = 20          # 20a's replication manager's suffix generator
+FLEET_DEAD = 50          # 20c's stopped kubelets
+FLEET_HEARTBEAT_S = 10.0  # fleet_metrics' heartbeat (20a)
+# The reference control-plane fixture's fast clocks (tests/
+# test_control_plane_e2e.py:45-60): grace 1.2 s, eviction 1 s, syncs
+# every 0.3 s, for 20c and 20d.  Their kubelets beat every 0.6 s: under
+# the grace with room, and half the fixture's 0.3 s, whose 1,667 writes/s
+# from 500 kubelets in one interpreter slowed its host work 5-25x in
+# earlier runs (PERF.md, section 6).
+DEATH_HEARTBEAT_S = 0.6
+NODE_GRACE_S = 1.2
+NODE_EVICTION_S = 1.0
+NODE_SYNC_S = 0.3
+WIRE_KUBELETS = 8        # 20d's kubelet processes
+WIRE_REPLICAS = 200
+# The reference test's bars (tests/test_control_plane_e2e.py:296-363).
+FLEET_USED_SHARE = 0.9
+FLEET_PER_NODE = 20
+FLEET_FULL_RESYNC_MS = 1000.0
+FLEET_IDLE_PASS_MS = 50.0
+FLEET_HEARTBEATS_PER_S = (5.0, 200.0)
+
+
+def fleet_node(api, name: str):
+    """``perf/harness.fleet_metrics``' node."""
+    return api.Node(name=name, labels={api.HOSTNAME_LABEL: name},
+                    allocatable_milli_cpu=64000,
+                    allocatable_memory=128 * 1024 ** 3,
+                    allocatable_pods=110,
+                    conditions=[api.NodeCondition("Ready", "True")])
+
+
+def fleet_rc(replicas: int) -> dict:
+    """``perf/harness.fleet_metrics``' RC."""
+    return {"metadata": {"name": FLEET_RC, "namespace": "default"},
+            "spec": {"replicas": replicas, "selector": {"run": FLEET_RC},
+                     "template": {
+                         "metadata": {"labels": {"run": FLEET_RC}},
+                         "spec": {"containers": [{
+                             "name": "c",
+                             "resources": {"requests": {"cpu": "50m"}}}]}}}}
+
+
+def fleet_pods(objs: list) -> list:
+    """The RC's live pods among ``objs``."""
+    return [o for o in objs
+            if ((o.get("metadata") or {}).get("labels") or {}).get("run")
+            == FLEET_RC and not (o.get("metadata") or {})
+            .get("deletionTimestamp")]
+
+
+def running(pods: list) -> list:
+    return [o for o in pods if (o.get("status") or {}).get("phase")
+            == "Running" and (o.get("spec") or {}).get("nodeName")]
+
+
+def ready_status(node: dict) -> str:
+    return next((c.get("status") for c in
+                 (node.get("status") or {}).get("conditions") or ()
+                 if c.get("type") == "Ready"), "")
+
+
+def fleet_check(what: str, pods: list, n: int, nodes: list,
+                dead: frozenset = frozenset()) -> dict:
+    """All ``n`` pods Running, none on a ``dead`` node, no node over its
+    cpu, memory or pod count; returns {node: pods}."""
+    from kubernetes_tpu_torch.api import types as api
+    live = running(pods)
+    if len(live) != n or len(pods) != n:
+        fail(f"{what}: {len(live)} of {n} replicas Running "
+             f"({len(pods)} live pods)")
+    alloc = {o["metadata"]["name"]: api.node_from_json(o) for o in nodes}
+    per: dict = {}
+    for o in live:
+        node = o["spec"]["nodeName"]
+        if node in dead:
+            fail(f"{what}: {o['metadata']['name']} is Running on the dead "
+                 f"node {node}")
+        if node not in alloc:
+            fail(f"{what}: {o['metadata']['name']} is on {node}, no node")
+        req = api.pod_from_json(o).resource_request()
+        cpu, mem, cnt = per.get(node, (0, 0, 0))
+        per[node] = (cpu + req.milli_cpu, mem + req.memory, cnt + 1)
+    over = [nd for nd, (cpu, mem, cnt) in per.items()
+            if cpu > alloc[nd].allocatable_milli_cpu
+            or mem > alloc[nd].allocatable_memory
+            or cnt > alloc[nd].allocatable_pods]
+    if over:
+        fail(f"{what}: {len(over)} nodes over capacity: {over[:5]}")
+    return {nd: cnt for nd, (_c, _m, cnt) in per.items()}
+
+
+def wait_for(what: str, cond, seconds: float, period: float = 0.1):
+    t0 = time.perf_counter()
+    while True:
+        v = cond()
+        if v:
+            return v
+        if time.perf_counter() - t0 > seconds:
+            fail(f"{what} not within {seconds} s")
+        time.sleep(period)
+
+
+class Gen2Pauses:
+    """While installed (``with``): the collections of the oldest
+    generation, their count, total and longest seconds."""
+
+    def __init__(self):
+        self.n, self.total, self.longest = 0, 0.0, 0.0
+        self._t0 = None
+
+    def __call__(self, phase: str, info: dict) -> None:
+        if info["generation"] != 2:
+            return
+        if phase == "start":
+            self._t0 = time.perf_counter()
+        elif self._t0 is not None:
+            d = time.perf_counter() - self._t0
+            self.n, self.total = self.n + 1, self.total + d
+            self.longest = max(self.longest, d)
+
+    def __enter__(self) -> "Gen2Pauses":
+        import gc
+        gc.callbacks.append(self)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        import gc
+        gc.callbacks.remove(self)
+
+    def describe(self) -> str:
+        return (f"{self.n} generation-2 collections, {self.total:.3f} s, "
+                f"longest {self.longest:.3f} s")
+
+
+def plans_since(before: dict) -> list:
+    from kubernetes_tpu_torch.engine import scan
+    return [{"n": n, "C": c, "K": k, "launches": m - before.get((n, c, k), 0)}
+            for (n, c, k), m in sorted(scan.scan_chunk.plans.items())
+            if m > before.get((n, c, k), 0)]
+
+
+def phase_fleet_metrics(nodes: int, replicas: int, card: str,
+                        dev: str = "cuda") -> dict:
+    """20b: ``perf/harness.fleet_metrics(device=dev)`` and the reference
+    test's bars; its store is kept (the replication manager's constructor
+    records it) to count the pods per node."""
+    from kubernetes_tpu_torch.controller.replication import (
+        ReplicationManager)
+    from kubernetes_tpu_torch.perf import harness
+
+    label = card if dev == "cuda" else dev
+    stores: list = []
+    real = ReplicationManager.__init__
+
+    def init(self, source, *a, **k):
+        real(self, source, *a, **k)
+        stores.append(self.store)
+
+    ReplicationManager.__init__ = init
+    zero_counts()
+    try:
+        rec = harness.fleet_metrics(nodes, replicas, device=dev)
+    finally:
+        ReplicationManager.__init__ = real
+    counts = kernel_counts()
+    store = stores[0]
+    per = fleet_check("20b", fleet_pods(store.list("pods")[0]), replicas,
+                      store.list("nodes")[0])
+    if rec["running"] != replicas:
+        fail(f"20b: {rec['running']} of {replicas} Running")
+    if len(per) < FLEET_USED_SHARE * nodes:
+        fail(f"20b: only {len(per)} of {nodes} nodes used")
+    if max(per.values()) > FLEET_PER_NODE:
+        fail(f"20b: {max(per.values())} pods on one node")
+    if rec["rc_full_resync_ms"] >= FLEET_FULL_RESYNC_MS:
+        fail(f"20b: full resync {rec['rc_full_resync_ms']} ms")
+    if rec["rc_idle_dirty_pass_ms"] >= FLEET_IDLE_PASS_MS:
+        fail(f"20b: idle dirty pass {rec['rc_idle_dirty_pass_ms']} ms")
+    lo, hi = FLEET_HEARTBEATS_PER_S
+    if not lo <= rec["heartbeat_writes_per_s"] <= hi:
+        fail(f"20b: {rec['heartbeat_writes_per_s']} heartbeat writes/s")
+    if rec["launches"] != counts:
+        fail(f"20b: fleet_metrics counted {rec['launches']}, the wrappers "
+             f"{counts}")
+    if dev == "cuda" and counts["scan_chunk"] < 1:
+        fail("20b: the fleet's drains launched no scan kernel")
+    print(f"phase 20b: {label}: fleet_metrics(device={dev!r}) {nodes} "
+          f"hollow kubelets x {replicas} replicas: settle_s "
+          f"{rec['settle_s']} (the JAX package's CPU run: 54.9 s, "
+          f"BENCH_r16.json), {rec['running']} Running on {len(per)} nodes "
+          f"(at most {max(per.values())} per node), full resync "
+          f"{rec['rc_full_resync_ms']} ms, idle dirty pass "
+          f"{rec['rc_idle_dirty_pass_ms']} ms, heartbeat writes "
+          f"{rec['heartbeat_writes_per_s']}/s; launches {counts}; cluster "
+          f"plans {rec['cluster_plans']}; 0 nodes over capacity")
+    return {"counts": counts, "record": rec}
+
+
+def start_fleet(nodes: int, replicas: int) -> dict:
+    """``nodes`` hollow kubelets (fleet_metrics' node, heartbeats every
+    FLEET_HEARTBEAT_S) and a replication manager with a seeded suffix
+    generator on one ``MemStore``; the RC's replicas created while no
+    scheduler runs.  Returns the rig (``stop_fleet`` stops it)."""
+    import random
+    from kubernetes_tpu_torch.api import types as api
+    from kubernetes_tpu_torch.apiserver.memstore import MemStore
+    from kubernetes_tpu_torch.controller.replication import (
+        ReplicationManager)
+    from kubernetes_tpu_torch.kubelet.kubelet import HollowKubelet
+
+    store = MemStore(share_events=True)
+    ctx = {"store": store, "kubelets": [], "others": []}
+    try:
+        for i in range(nodes):
+            ctx["kubelets"].append(HollowKubelet(
+                store, fleet_node(api, f"fm-{i:03d}"),
+                heartbeat_period=FLEET_HEARTBEAT_S).run())
+        rm = ReplicationManager(store, sync_period=0.5)
+        rm._rand = random.Random(FLEET_SEED)
+        ctx["others"].append(rm.run())
+        store.create("replicationcontrollers", fleet_rc(replicas))
+        wait_for(f"20a: {replicas} pending replicas", lambda: len(
+            fleet_pods(store.list("pods")[0])) == replicas, 120)
+    except BaseException:
+        stop_fleet(ctx)
+        raise
+    return ctx
+
+
+def stop_fleet(ctx: dict) -> None:
+    for obj in reversed(ctx["others"]):
+        obj.stop()
+    for k in ctx["kubelets"]:
+        k.stop()
+    ctx["others"].clear()
+
+
+def time_fleet_chunk(node_objs: list, pod_objs: list, dev) -> dict:
+    """One fleet-sized chunk (every pending pod of 20a x its nodes) as the
+    solver hands it to the kernel, at the plan's cluster size: the launch
+    alone with CUDA events (median of 10, the carried state restored
+    before each), against its bound and against the step loop on the
+    card (choices, counter and state bit for bit)."""
+    import torch
+    from kubernetes_tpu_torch.api import types as api
+    from kubernetes_tpu_torch.engine import scan as scan_mod
+    from kubernetes_tpu_torch.engine.generic_scheduler import (
+        GenericScheduler)
+    from kubernetes_tpu_torch.perf import scan_check
+
+    sched = GenericScheduler(device=dev)
+    for o in node_objs:
+        sched.cache.add_node(api.node_from_json(o))
+    pods = [api.pod_from_json(o) for o in pod_objs]
+    ns = scan_check.north_star_chunk(pods=len(pods), device=dev,
+                                     rig=(sched, pods))
+    enc, kw, init = ns["enc"], ns["kw"], ns["init"]
+    p, n = enc.shape
+    plan = scan_mod.cluster_plan(
+        n, t=0 if kw.get("d_plane") is None else kw["d_plane"].shape[0],
+        s=0 if kw.get("sp_node") is None else kw["sp_node"].shape[0],
+        z=0 if kw.get("sp_zone") is None else kw["sp_zone"].shape[1],
+        half=enc.dtype == torch.float16)
+
+    def kernel_once() -> float:
+        for k, v in init.items():
+            kw[k].copy_(v)
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        scan_mod.scan_chunk(enc, **kw)
+        stop.record()
+        stop.synchronize()
+        return start.elapsed_time(stop)
+
+    times = [kernel_once() for _ in range(10)]
+    after = {k: kw[k].clone() for k in init}
+
+    def chunk(route: str) -> tuple[float, tuple]:
+        counter = torch.zeros(1, dtype=torch.int64, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = ns["sched"].solver._solve_scan(
+            ns["db"], ns["dc"], counter, None, ns["flags"], None, None,
+            None, route=route)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3, out
+
+    plain_ms, ref = chunk("steps")
+    _ms, out = chunk("kernel")
+    try:
+        worst = scan_check.compare("the fleet chunk, kernel vs the step "
+                                   "loop", out, ref)
+    except scan_check.ScanMismatch as err:
+        fail(f"20a: scan kernel != step loop on the fleet chunk: {err}")
+    bound_ms, bound_by = scan_bound(enc, kw, init, after)
+    ms = statistics.median(times)
+    print(f"phase 20a: the fleet chunk, {p} pods x {n} nodes ({enc.dtype}), "
+          f"plan {plan.describe()}: the launch alone {ms:.6f} ms (median "
+          f"of 10, min {min(times):.6f}, max {max(times):.6f}) = "
+          f"{ms / p * 1e3:.6f} us per step; bound {bound_ms:.6f} ms "
+          f"({bound_by}); the step loop on the card {plain_ms:.3f} ms; "
+          f"kernel == step loop (choices, counter, state bit for bit), "
+          f"max_abs_err {worst}")
+    return {"pods": p, "nodes": n, "cluster": plan.cluster, "k": plan.k,
+            "plan": plan.describe(), "ms": ms,
+            "min_ms": min(times), "max_ms": max(times),
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "max_abs_err": worst}
+
+
+def phase_fleet_parity(nodes: int, replicas: int, card: str,
+                       dev: str = "cuda") -> dict:
+    """20a: the fleet's pending replicas drained by ``ConfigFactory`` on
+    ``dev`` and, on a twin store holding a deep copy of the same nodes
+    and pending pods, on the CPU: the same node for every pod and the
+    same round-robin counter.  Returns the rig, its daemon running, for
+    20c."""
+    from kubernetes_tpu_torch.apiserver.memstore import MemStore
+    from kubernetes_tpu_torch.engine import scan
+    from kubernetes_tpu_torch.scheduler.factory import ConfigFactory
+
+    label = card if dev == "cuda" else dev
+    t0 = time.perf_counter()
+    ctx = start_fleet(nodes, replicas)
+    try:
+        store = ctx["store"]
+        node_objs = store.list("nodes")[0]
+        pending = fleet_pods(store.list("pods")[0])
+        if any((o.get("spec") or {}).get("nodeName") for o in pending):
+            fail("20a: a replica was bound before the daemon started")
+        # Every kind the daemon reads (the RC feeds SelectorSpread), in
+        # the store's order.
+        twin = MemStore()
+        for kind in ("nodes", "services", "replicationcontrollers",
+                     "replicasets", "persistentvolumes",
+                     "persistentvolumeclaims", "pods"):
+            for o in store.list(kind)[0]:
+                twin.create(kind, o)
+        ready_s = time.perf_counter() - t0
+        zero_counts()
+        plans0 = dict(scan.scan_chunk.plans)
+        t1 = time.perf_counter()
+        f = ConfigFactory(store, device=dev)
+        ctx["others"].append(f.run())
+        # A list deep-copies every pod under the store's lock: poll at
+        # 0.25 s so the poll does not slow the binds it waits for.
+        wait_for(f"20a: {replicas} replicas bound on {dev}", lambda: sum(
+            bool((o.get("spec") or {}).get("nodeName")) for o in
+            store.list("pods")[0]) >= replicas, 300, 0.25)
+        secs = time.perf_counter() - t1
+        counts = kernel_counts()
+        plans = plans_since(plans0)
+        maps = {dev: {o["metadata"]["name"]: o["spec"]["nodeName"]
+                      for o in fleet_pods(store.list("pods")[0])}}
+        counters = {dev: int(f.algorithm.last_node_index)}
+        cpu = ConfigFactory(twin, device="cpu")
+        try:
+            t1 = time.perf_counter()
+            cpu.run()
+            cpu_s = time.perf_counter() - t1 + wait_bound(twin, replicas,
+                                                          900)
+            maps["cpu"] = {o["metadata"]["name"]: o["spec"]["nodeName"]
+                           for o in twin.list("pods")[0]}
+            counters["cpu"] = int(cpu.algorithm.last_node_index)
+        finally:
+            cpu.stop()
+        if maps[dev] != maps["cpu"]:
+            diff = [k for k in maps[dev] if maps[dev][k] != maps["cpu"]
+                    .get(k)][:5]
+            fail(f"20a: {dev} and cpu placed pods differently: {diff}")
+        if counters[dev] != counters["cpu"]:
+            fail(f"20a: round-robin counter {counters}")
+        if dev == "cuda" and counts["scan_chunk"] < 1:
+            fail("20a: the drain launched no scan kernel")
+        print(f"phase 20a: {label}: {nodes} hollow kubelets (heartbeats "
+              f"every {FLEET_HEARTBEAT_S} s) and {replicas} pending "
+              f"replicas of a seeded replication manager in {ready_s:.3f} "
+              f"s; ConfigFactory on {dev} bound every replica "
+              f"{secs:.3f} s after its construction, the cpu twin "
+              f"{cpu_s:.3f} s after its run(); every pod's node and the "
+              f"round-robin counter ({counters[dev]}) identical; launches "
+              f"{counts}; cluster plans {plans}")
+        out = {"counts": counts, "plans": plans, "ctx": ctx}
+        if dev == "cuda":
+            out["chunk"] = time_fleet_chunk(node_objs, pending, dev)
+        return out
+    except BaseException:
+        stop_fleet(ctx)
+        raise
+
+
+def phase_fleet_death(ctx: dict, nodes: int, replicas: int, card: str,
+                      dev: str = "cuda") -> dict:
+    """20c: on 20a's fleet, the node lifecycle controller on the fast
+    clocks, a Service with the endpoints controller and a hollow proxy;
+    FLEET_DEAD kubelets stopped: their nodes Ready=Unknown, their pods
+    evicted, replaced and bound to survivors, all Running again, none on
+    a dead node, no node over capacity, the Endpoints equal to the
+    Running pods' addresses and the proxy's table to the Endpoints."""
+    from kubernetes_tpu_torch.controller.endpoints import EndpointsController
+    from kubernetes_tpu_torch.controller.node import NodeLifecycleController
+    from kubernetes_tpu_torch.proxy.proxy import HollowProxy
+
+    label = card if dev == "cuda" else dev
+    store = ctx["store"]
+    wait_for(f"20c: {replicas} replicas Running", lambda: len(running(
+        fleet_pods(store.list("pods")[0]))) == replicas, 120, 0.5)
+    # The kubelets' loops read their period after each wait: one more
+    # old period and every kubelet beats at the new one.
+    for k in ctx["kubelets"]:
+        k.heartbeat_period = DEATH_HEARTBEAT_S
+    time.sleep(FLEET_HEARTBEAT_S + DEATH_HEARTBEAT_S)
+    store.create("services", {
+        "metadata": {"name": "fleet-svc", "namespace": "default"},
+        "spec": {"selector": {"run": FLEET_RC}}})
+    ctx["others"].append(EndpointsController(store, sync_period=0.2).run())
+    proxy = HollowProxy(store).run()
+    ctx["others"].append(proxy)
+    ctx["others"].append(NodeLifecycleController(
+        store, monitor_grace=NODE_GRACE_S, eviction_timeout=NODE_EVICTION_S,
+        sync_period=NODE_SYNC_S).run())
+    # Several grace periods with every kubelet alive: no node may go
+    # Unknown before the stop.
+    time.sleep(3 * NODE_GRACE_S)
+    unknown = [o["metadata"]["name"] for o in store.list("nodes")[0]
+               if ready_status(o) != "True"]
+    if unknown:
+        fail(f"20c: {len(unknown)} live nodes not Ready before the stop: "
+             f"{unknown[:5]}")
+    n_dead = max(1, nodes * FLEET_DEAD // FLEET_NODES)
+    victims = ctx["kubelets"][::nodes // n_dead][:n_dead]
+    dead = frozenset(k.node.name for k in victims)
+    before = {o["metadata"]["name"]: o["spec"]["nodeName"]
+              for o in fleet_pods(store.list("pods")[0])}
+    on_dead = {p for p, nd in before.items() if nd in dead}
+    zero_counts()
+    t0 = time.perf_counter()
+    for k in victims:
+        k.stop()
+
+    def all_unknown():
+        objs = {o["metadata"]["name"]: o for o in store.list("nodes")[0]}
+        return all(ready_status(objs[nd]) == "Unknown" for nd in dead)
+    wait_for("20c: the dead nodes Ready=Unknown", all_unknown, 60)
+    unknown_s = time.perf_counter() - t0
+
+    def recovered():
+        pods = fleet_pods(store.list("pods")[0])
+        live = running(pods)
+        return len(pods) == replicas and len(live) == replicas and not any(
+            o["spec"]["nodeName"] in dead for o in live)
+    wait_for("20c: every replica Running off the dead nodes", recovered,
+             300, 0.25)
+    settle_s = time.perf_counter() - t0
+    counts = kernel_counts()
+    pods = fleet_pods(store.list("pods")[0])
+    node_objs = store.list("nodes")[0]
+    per = fleet_check("20c", pods, replicas, node_objs, dead)
+    after = {o["metadata"]["name"] for o in pods}
+    if on_dead & after:
+        fail(f"20c: pods of dead nodes not evicted: "
+             f"{sorted(on_dead & after)[:5]}")
+    moved = [p for p, nd in before.items() if p not in after
+             and nd not in dead]
+    not_ready = [o["metadata"]["name"] for o in node_objs
+                 if o["metadata"]["name"] not in dead
+                 and ready_status(o) != "True"]
+
+    def endpoints():
+        ips = sorted(o["status"]["podIP"] for o in running(fleet_pods(
+            store.list("pods")[0])))
+        ep = store.get("endpoints", "default/fleet-svc") or {}
+        got = sorted(a["ip"] for s in ep.get("subsets") or ()
+                     for a in s.get("addresses") or ())
+        return len(ips) == replicas and got == ips and \
+            proxy.backends("default", "fleet-svc") == got
+    wait_for("20c: the Endpoints and the proxy's table equal to the "
+             "Running pods' addresses", endpoints, 60, 0.2)
+    if dev == "cuda" and counts["scan_chunk"] < 1:
+        fail("20c: the replacements' drains launched no scan kernel")
+    print(f"phase 20c: {label}: {len(dead)} of {nodes} kubelets stopped: "
+          f"their nodes Ready=Unknown {unknown_s:.3f} s after the first "
+          f"stop; {len(on_dead)} pods evicted, replaced and Running on "
+          f"{len(per)} survivors {settle_s:.3f} s after the first stop "
+          f"(none on a dead node, 0 over capacity; {len(moved)} pods of "
+          f"live nodes evicted, {len(not_ready)} live nodes not Ready); "
+          f"the Endpoints and the proxy's table hold the {replicas} "
+          f"Running pods' addresses; launches {counts}")
+    return {"counts": counts, "settle_s": settle_s}
+
+
+def phase_fleet_wire(card: str, dev: str = "cuda") -> dict:
+    """20d: the native apiserver, ``python -m kubernetes_tpu_torch.
+    scheduler --api-server URL`` on ``dev``, WIRE_KUBELETS ``python -m
+    kubernetes_tpu_torch.kubelet`` and one ``python -m kubernetes_tpu_torch.
+    proxy`` as processes; the replication manager and the node controller
+    in this process over ``APIClient``.  An RC of WIRE_REPLICAS reaches
+    Running; one kubelet SIGKILLed: its node Ready=Unknown and its pods
+    rescheduled to survivors; the daemon's ``/debug/vars`` counts its
+    scan launches.  Every process is stopped, also on failure."""
+    from kubernetes_tpu_torch.client.http import APIClient
+    from kubernetes_tpu_torch.controller.node import NodeLifecycleController
+    from kubernetes_tpu_torch.controller.replication import (
+        ReplicationManager)
+
+    label = card if dev == "cuda" else dev
+    t0 = time.perf_counter()
+    api_proc, base = start_rig_apiserver()
+    children: dict = {}
+    ctrls: list = []
+    codes: dict = {}
+    try:
+        cmd = [sys.executable, "-m", "kubernetes_tpu_torch.scheduler",
+               "--api-server", base, "--port", "0",
+               "--kube-api-qps", "5000", "--kube-api-burst", "5000"]
+        if dev != "cuda":
+            cmd += ["--device", dev]
+        sched = children["scheduler"] = Child(cmd, stdout=subprocess.PIPE)
+        port = json.loads(sched.proc.stdout.readline() or "{}").get("port")
+        if port is None:
+            fail(f"20d: the daemon binary did not start: {sched.tail()}")
+        for i in range(WIRE_KUBELETS):
+            children[f"wk-{i}"] = Child(
+                [sys.executable, "-m", "kubernetes_tpu_torch.kubelet",
+                 "--api-server", base, "--node-name", f"wk-{i}",
+                 "--cpu", "64000", "--memory-gib", "128", "--pods", "110",
+                 "--heartbeat-period", str(DEATH_HEARTBEAT_S)])
+        children["proxy"] = Child([sys.executable, "-m",
+                                   "kubernetes_tpu_torch.proxy",
+                                   "--api-server", base])
+        children["proxy"].wait_line("hollow kube-proxy running")
+        wait_for(f"20d: {WIRE_KUBELETS} kubelet processes registered and "
+                 f"Ready", lambda: sum(ready_status(o) == "True" for o in
+                                       wire_list(base, "nodes"))
+                 == WIRE_KUBELETS, 120, 0.2)
+        ready_s = time.perf_counter() - t0
+        client = APIClient(base, qps=5000, burst=5000)
+        ctrls.append(ReplicationManager(client, sync_period=0.3).run())
+        t1 = time.perf_counter()
+        client.create("replicationcontrollers", fleet_rc(WIRE_REPLICAS))
+        wait_for(f"20d: {WIRE_REPLICAS} replicas Running over HTTP",
+                 lambda: len(running(fleet_pods(wire_list(base, "pods"))))
+                 == WIRE_REPLICAS, 180, 0.2)
+        run_s = time.perf_counter() - t1
+        ctrls.append(NodeLifecycleController(
+            client, monitor_grace=NODE_GRACE_S,
+            eviction_timeout=NODE_EVICTION_S,
+            sync_period=NODE_SYNC_S).run())
+        time.sleep(3 * NODE_GRACE_S)
+        if any(ready_status(o) != "True" for o in wire_list(base, "nodes")):
+            fail("20d: a live kubelet's node went not Ready")
+        pods = fleet_pods(wire_list(base, "pods"))
+        victim = max(sorted({o["spec"]["nodeName"] for o in pods}),
+                     key=lambda nd: sum(o["spec"]["nodeName"] == nd
+                                        for o in pods))
+        on_victim = {o["metadata"]["name"] for o in pods
+                     if o["spec"]["nodeName"] == victim}
+        t2 = time.perf_counter()
+        children[victim].proc.kill()
+        children[victim].proc.wait()
+        codes[victim] = "SIGKILL"
+
+        def victim_unknown():
+            return any(o["metadata"]["name"] == victim
+                       and ready_status(o) == "Unknown"
+                       for o in wire_list(base, "nodes"))
+        wait_for(f"20d: {victim} Ready=Unknown", victim_unknown, 60, 0.2)
+
+        def rescheduled():
+            pods = fleet_pods(wire_list(base, "pods"))
+            live = running(pods)
+            return len(pods) == len(live) == WIRE_REPLICAS and not any(
+                o["spec"]["nodeName"] == victim or o["metadata"]["name"]
+                in on_victim for o in live)
+        wait_for(f"20d: {victim}'s pods rescheduled and Running",
+                 rescheduled, 180, 0.2)
+        resched_s = time.perf_counter() - t2
+        fleet_check("20d", fleet_pods(wire_list(base, "pods")),
+                    WIRE_REPLICAS, wire_list(base, "nodes"),
+                    frozenset({victim}))
+        launches = debug_vars(port)["kernelLaunches"]
+        if dev == "cuda" and launches["scan_chunk"] < 1:
+            fail(f"20d: the daemon process launched no scan kernel: "
+                 f"{launches}")
+    finally:
+        for c in ctrls:
+            c.stop()
+        for name, child in children.items():
+            if name not in codes:
+                codes[name] = child.stop()
+        # The native binary ends on SIGTERM's default action (-15), as
+        # the other phases that stop it leave it.
+        api_proc.stop()
+    bad = {k: v for k, v in codes.items() if v not in (0, "SIGKILL")}
+    if bad:
+        fail(f"20d: processes exited non-zero on SIGTERM: {bad}")
+    print(f"phase 20d: {label}: the native apiserver, the daemon binary on "
+          f"{dev}, {WIRE_KUBELETS} kubelet processes and a proxy process "
+          f"ready in {ready_s:.3f} s; {WIRE_REPLICAS} replicas Running over "
+          f"HTTP {run_s:.3f} s after the RC's POST; {victim} SIGKILLed: "
+          f"Ready=Unknown and its {len(on_victim)} pods rescheduled and "
+          f"Running {resched_s:.3f} s later, none on it, 0 over capacity; "
+          f"the daemon's /debug/vars kernelLaunches {launches}; every "
+          f"other process exited 0 on SIGTERM")
+    return {"counts": launches}
+
+
+def process_state() -> str:
+    """This process's threads (the most common names), resident memory
+    and the host's 1-minute load average."""
+    import collections
+    import os
+    import re
+    names = collections.Counter(re.sub(r"[-_]?\d+$", "", t.name)
+                                for t in threading.enumerate())
+    rss = next((ln.split()[1] for ln in open("/proc/self/status")
+                if ln.startswith("VmRSS:")), "?")
+    return (f"{sum(names.values())} threads (most: "
+            f"{names.most_common(4)}), RSS {rss} kB, load average "
+            f"{os.getloadavg()[0]:.2f}")
+
+
+def phase_fleet_child(args) -> dict:
+    """20 in a fresh interpreter (``chip_smoke.py --fleet-only``): after
+    phases 1-19 this process's host work ran many times slower than the
+    same fleet alone (PERF.md, section 6).  Its lines are echoed; its last
+    line is the phase's record.  The child is stopped on any failure."""
+    print(f"phase 20: the smoke's process before the child: "
+          f"{process_state()}", flush=True)
+    cmd = [sys.executable, __file__, "--fleet-only",
+           "--fleet-nodes", str(args.fleet_nodes),
+           "--fleet-replicas", str(args.fleet_replicas)]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, text=True)
+    last = ""
+    try:
+        for line in proc.stdout:
+            print(line, end="", flush=True)
+            last = line
+        rc = proc.wait()
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        proc.stdout.close()
+    if rc != 0:
+        fail(f"20: python3 chip_smoke.py --fleet-only exited {rc}")
+    return json.loads(last)["fleet"]
+
+
+def phase_fleet(args, card: str, dev: str = "cuda") -> dict:
+    """20: the kubemark control plane on the card, 20a-20d (20b first:
+    fleet_metrics builds and stops its own fleet, and 20c runs on 20a's)."""
+    t0 = time.perf_counter()
+
+    def done(what: str) -> None:
+        print(f"phase 20: {what} done {time.perf_counter() - t0:.3f} s "
+              f"into the phase", flush=True)
+
+    # Each sub-phase reports the collections of the oldest generation
+    # (the fleets' host work allocates fast).
+    out = {}
+    with Gen2Pauses() as gc2:
+        out["b"] = phase_fleet_metrics(args.fleet_nodes,
+                                       args.fleet_replicas, card,
+                                       dev)["counts"]
+    done(f"20b ({gc2.describe()})")
+    with Gen2Pauses() as gc2:
+        a = phase_fleet_parity(args.fleet_nodes, args.fleet_replicas,
+                               card, dev)
+    out["a"], chunk = a["counts"], a.get("chunk")
+    done(f"20a ({gc2.describe()})")
+    try:
+        with Gen2Pauses() as gc2:
+            out["c"] = phase_fleet_death(a["ctx"], args.fleet_nodes,
+                                         args.fleet_replicas, card,
+                                         dev)["counts"]
+    finally:
+        stop_fleet(a["ctx"])
+    done(f"20c ({gc2.describe()})")
+    with Gen2Pauses() as gc2:
+        out["d"] = phase_fleet_wire(card, dev)["counts"]
+    done(f"20d ({gc2.describe()})")
+    print(f"phase 20: all of 20a-20d passed in "
+          f"{time.perf_counter() - t0:.3f} s")
+    return {"paths": out, "chunk": chunk}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--nodes", type=int, default=5000)
@@ -3770,11 +4523,11 @@ def main() -> int:
     ap.add_argument("--rich-nodes", type=int, default=1000)
     ap.add_argument("--rich-pods", type=int, default=1024)
     ap.add_argument("--single-nodes", type=int, default=5000)
-    ap.add_argument("--single-pods", type=int, default=512)
+    ap.add_argument("--single-pods", type=int, default=256)
     ap.add_argument("--extender-nodes", type=int, default=5000)
     ap.add_argument("--extender-probes", type=int, default=200)
     ap.add_argument("--factory-nodes", type=int, default=5000)
-    ap.add_argument("--factory-pods", type=int, default=4096)
+    ap.add_argument("--factory-pods", type=int, default=2048)
     ap.add_argument("--topology-pods", type=int, default=4096)
     ap.add_argument("--binary-nodes", type=int, default=1000)
     ap.add_argument("--binary-pods", type=int, default=2048)
@@ -3786,6 +4539,11 @@ def main() -> int:
                          "lines")
     ap.add_argument("--slice-only", action="store_true",
                     help="build and run phase 19 only; prints no result "
+                         "lines")
+    ap.add_argument("--fleet-nodes", type=int, default=FLEET_NODES)
+    ap.add_argument("--fleet-replicas", type=int, default=FLEET_REPLICAS)
+    ap.add_argument("--fleet-only", action="store_true",
+                    help="build and run phase 20 only; prints no result "
                          "lines")
     args = ap.parse_args()
     t_start = time.perf_counter()
@@ -3806,7 +4564,9 @@ def main() -> int:
     print(f"phase 1: card {card}; torch {torch.__version__} "
           f"cuda {torch.version.cuda}")
     t0 = time.perf_counter()
-    lib, log = kernels.build(verbose=True)
+    # --fleet-only loads a library its parent smoke built (it builds one
+    # if there is none); every other run rebuilds, for ptxas's report.
+    lib, log = kernels.build(verbose=not args.fleet_only)
     print(f"phase 1: built {lib.name} (one nvcc command: "
           f"{', '.join(src.name for src in kernels.SOURCES)}) in "
           f"{time.perf_counter() - t0:.3f} s")
@@ -3819,6 +4579,10 @@ def main() -> int:
         return 0
     if args.slice_only:
         phase_slice(args, card)
+        return 0
+    if args.fleet_only:
+        # The last line: the phase's record, for a parent smoke to read.
+        print(json.dumps({"fleet": phase_fleet(args, card)}))
         return 0
     def stamp(done: str) -> None:
         print(f"chip_smoke: {done} done at "
@@ -3840,7 +4604,7 @@ def main() -> int:
     daemon = phase_daemon(args.nodes, args.pods, full, card)
     phase_factory(args.factory_nodes, args.factory_pods, card)
     phase_preemption(args.nodes, card)
-    phase_guard(args.nodes, args.factory_pods, card)
+    phase_guard(args.nodes, GUARD_PODS, card)
     stamp("phases 9-12")
     topo = phase_topology(args.nodes, args.topology_pods, args.pods, card)
     joint = phase_joint(args.nodes, args.pods, card)
@@ -3856,6 +4620,8 @@ def main() -> int:
     slice19 = phase_slice(
         args, card, density_p50=bench18["art"]["settings"]["one-shot"]
         ["elapsed_s_p50"])
+    stamp("phase 19")
+    fleet20 = phase_fleet_child(args)
 
     def wire_launches(kernel: str) -> dict:
         out = {f"wire_{run}": wire17[run]["counts"][kernel]
@@ -3866,6 +4632,10 @@ def main() -> int:
         # incarnations (summed), 19c's rounds, 19d's follow-up drain.
         out.update({f"slice_{path}": counts[kernel] if counts else 0
                     for path, counts in slice19.items()})
+        # Phase 20's paths: 20a's drain, 20b's fleet, 20c's replacements,
+        # 20d's daemon process.
+        out.update({f"fleet_20{sub}": counts[kernel]
+                    for sub, counts in fleet20["paths"].items()})
         return out
 
     kernels_line = [{
@@ -3917,6 +4687,7 @@ def main() -> int:
         "rich_chunk": {k: sstats["rich"][k] for k in (
             "ms", "cluster", "per_cluster_ms", "plans", "hoist_ms",
             "plain_ms", "bound_ms", "bound_by", "axes", "max_abs_err")},
+        "fleet_chunk": fleet20["chunk"],
     }, {
         "name": "select_hosts",
         "route": "cuda",

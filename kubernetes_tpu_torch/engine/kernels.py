@@ -34,8 +34,11 @@ SOURCES = (_CSRC / "select.cu", _CSRC / "scan.cu")
 # build/kubernetes_tpu_torch/ at the root of the checkout (git-ignored).
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / \
     "kubernetes_tpu_torch"
+# --split-compile=0: the optimizer and ptxas work on the scan kernel's
+# instantiations in parallel, one thread per core.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "--fmad=false", "--split-compile=0", "-shared",
+              "-Xcompiler", "-fPIC")
 
 _lib_lock = threading.Lock()
 _lib: "ctypes.CDLL | None" = None

@@ -38,7 +38,8 @@ stays in device memory.
 
 :func:`scan_chunk` takes CUDA tensors only, launches on the current
 stream, never synchronises, raises on a failed launch, and counts its
-launches in ``scan_chunk.launches``.  Before the first launch of each
+launches in ``scan_chunk.launches`` (and per plan, keyed by (N, C, K),
+in ``scan_chunk.plans``).  Before the first launch of each
 configuration it checks that one such cluster can be resident
 (``cudaOccupancyMaxActiveClusters``) and raises, naming C, the threads
 and the shared-memory bytes, if not; it never shrinks C.
@@ -752,7 +753,10 @@ def scan_chunk(enc: torch.Tensor, *, request: torch.Tensor,
         raise RuntimeError(f"scan_chunk: kernel launch failed (cudaError "
                            f"{err})")
     scan_chunk.launches += 1
+    key = (plan.n, plan.cluster, plan.k)
+    scan_chunk.plans[key] = scan_chunk.plans.get(key, 0) + 1
     return choices
 
 
 scan_chunk.launches = 0
+scan_chunk.plans = {}  # (N, C, K) -> launches

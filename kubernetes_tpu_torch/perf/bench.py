@@ -7,8 +7,8 @@ stays as it is): ``python -m kubernetes_tpu_torch.perf.bench [--device
 cpu] [--out build/BENCH_cuda.json] [--profile-dir DIR]``.  It reads the
 same environment names: ``BENCH_NODES`` (5000), ``BENCH_PODS`` (30000),
 ``BENCH_PROFILE`` (mixed), ``BENCH_DENSITY_RUNS`` (5), ``BENCH_WIRE`` (1),
-``BENCH_WIRE_RUNS`` (3), ``BENCH_JOINT`` (1), ``BENCH_WORKLOADS`` (1) and
-``BENCH_SERVING`` (1); 0 skips a phase.
+``BENCH_WIRE_RUNS`` (3), ``BENCH_JOINT`` (1), ``BENCH_WORKLOADS`` (1),
+``BENCH_SERVING`` (1) and ``BENCH_FLEET`` (1); 0 skips a phase.
 
 * **density**: ``BENCH_DENSITY_RUNS`` runs of ``perf/harness.density``
   for each setting (``stream``, ``one-shot``; ``harness.py`` says what
@@ -20,7 +20,11 @@ same environment names: ``BENCH_NODES`` (5000), ``BENCH_PODS`` (30000),
   never dropped and never medianed as 0.
 * **joint**: ``perf/workloads.joint_quality``; **workloads**: its
   ``collect()`` (written beside ``--out`` as ``WORKLOADS_<backend>.json``);
-  **serving**: ``perf/serving.collect()`` (``SERVING_<backend>.json``).
+  **serving**: ``perf/serving.collect()`` (``SERVING_<backend>.json``);
+  **fleet**: ``perf/harness.fleet_metrics`` at its defaults (the
+  kubemark rig: 500 hollow kubelets, the replication manager, 2,000
+  replicas and the daemon on the device), with the kernels' launches
+  and the scan kernel's plans in its drains.
 
 The headline keys (``value``, ``runs``, ``median``, ``elapsed_s_*``,
 ``stages``, ``device``, ``profile``, ``wire``) are the ``stream``
@@ -34,8 +38,8 @@ builds after each run's warm-up; it must be 0).
 
 Left out, each named under ``left_out`` in the artifact: ``cold_vs_warm``
 (the JAX persistent compile cache; the port has no per-shape compile),
-``soak`` and ``tenancy`` (ROADMAP §A items 6 and 8), ``fleet`` (§A 8)
-and the ``xray`` stamp (§A 7).  It never writes the JAX package's
+``soak`` and ``tenancy`` (ROADMAP §A items 1 and 2) and the ``xray``
+stamp (§A item 5).  It never writes the JAX package's
 records (``BENCH_r*.json``, ``BASELINE*``, ``SERVING_r*``, ...).
 """
 
@@ -52,11 +56,12 @@ LEFT_OUT = {
                     "cache; the port compiles nothing per shape and its "
                     "nvcc library is cached by a hash of its sources "
                     "(see library_build_s)",
-    "soak": "waits for ROADMAP §A items 6 and 8 (shards, the chaos "
-            "proxy, the controllers)",
-    "tenancy": "waits for ROADMAP §A item 6 (tenancy)",
-    "fleet": "waits for ROADMAP §A item 8 (controllers, hollow kubelet)",
-    "xray": "waits for ROADMAP §A item 7 (the compile-surface manifest)",
+    "soak": "waits for ROADMAP §A item 2 (perf/soak.py with the chaos "
+            "proxy, the bind monitor and the disruption controller)",
+    "tenancy": "waits for ROADMAP §A item 1 (the bench's call of "
+               "perf/tenancy.collect, which runs on its own as python -m "
+               "kubernetes_tpu_torch.perf.tenancy)",
+    "xray": "waits for ROADMAP §A item 5 (the compile-surface manifest)",
 }
 BASELINE_PODS_PER_S = 8.0  # test/e2e/density.go:48 MinPodsPerSecondThroughput
 _REFERENCE_RECORDS = ("BENCH_r", "BASELINE", "SERVING_r", "WORKLOADS_r",
@@ -329,6 +334,20 @@ def main(argv=None) -> int:
                 failures.append(f"serving {name}: {row['unbound']} pods "
                                 f"never bound")
 
+    fleet = None
+    if os.environ.get("BENCH_FLEET", "1") != "0":
+        before = harness.kernel_launches()
+        try:
+            fleet = harness.fleet_metrics(device=device)
+        except Exception as err:  # noqa: BLE001 — named; the run fails
+            failures.append(f"fleet: {type(err).__name__}: {err}")
+        launches_by_path["fleet"] = harness.launches_since(before)
+        if fleet is not None:
+            print(f"fleet: {fleet}", file=sys.stderr)
+            if fleet["running"] < fleet["replicas"]:
+                failures.append(f"fleet: {fleet['running']} of "
+                                f"{fleet['replicas']} replicas Running")
+
     head = settings["stream"]
     post_prewarm = sum(r["device"]["post_prewarm_compiles"]
                        for r in settings.values()) + \
@@ -368,6 +387,8 @@ def main(argv=None) -> int:
         out["wire"] = dict(wire["stream"], settings=wire)
     if serving is not None:
         out["serving"] = serving
+    if fleet is not None:
+        out["fleet"] = fleet
     if post_prewarm:
         failures.append(f"{post_prewarm} kernel builds after the warm-up")
     from kubernetes_tpu_torch.utils import profiler

@@ -596,7 +596,8 @@ def axis_sizes(db) -> dict:
 
 def north_star_chunk(nodes: int = 5000, pods: int = 2048,
                      device="cuda", profile: str = "mixed",
-                     batch_pods: int | None = None) -> dict:
+                     batch_pods: int | None = None,
+                     rig: tuple | None = None) -> dict:
     """The first chunk of a ``profile`` rig as the solver hands it to the
     kernel, for timing it alone: one launch through ``_solve_scan`` with
     the kernel's arguments captured.  With ``batch_pods`` the rig has
@@ -605,9 +606,11 @@ def north_star_chunk(nodes: int = 5000, pods: int = 2048,
     "db", "dc", "flags"} (the compiled chunk), {"enc", "kw"} (the
     arguments, the rich families' term lists included) and "init" (the
     carried state as it was before the launch, to restore between timed
-    launches)."""
-    sched, plist = synth.make_rig(nodes, batch_pods or pods,
-                                  profile=profile, device=device)
+    launches).  ``rig`` (an engine and its pod list) takes the synthetic
+    rig's place; ``nodes``, ``profile`` and ``batch_pods`` then go
+    unused."""
+    sched, plist = rig if rig is not None else synth.make_rig(
+        nodes, batch_pods or pods, profile=profile, device=device)
     batch, db, dc, _ = sched._compile(plist)
     flags = sv.batch_flags(batch)
     db = sv.slice_pod_axis(db, 0, pods)

@@ -10,7 +10,8 @@ the CPU.
 * ``density_wire`` at 32 x 128 against the port's Python apiserver
   binds every pod; a rig that binds nothing raises ``ZeroBoundError``.
 * The bench's artifact carries the JAX package's artifact keys
-  (``BENCH_r16.json``), less the ones it names as left out; its
+  (``BENCH_r16.json``), less the ones it names as left out (the
+  ``fleet`` record at a toy size among them); its
   ``backend`` is ``cpu`` on the CPU; ``--device cuda`` without a card
   exits non-zero; the JAX package's record names are refused.
 """
@@ -118,6 +119,11 @@ def test_the_artifact_carries_the_reference_keys(tmp_path, monkeypatch):
                  "KT_NATIVE_APISERVER": "0", "KT_WIRE_CHUNK": "256"
                  }.items():
         monkeypatch.setenv(k, v)
+    real_fleet = harness.fleet_metrics
+
+    def small_fleet(device="cuda"):
+        return real_fleet(4, 12, device=device)
+    monkeypatch.setattr(harness, "fleet_metrics", small_fleet)
     real_joint = workloads.joint_quality
 
     def small_joint(*_shape, device="cuda"):
@@ -140,7 +146,9 @@ def test_the_artifact_carries_the_reference_keys(tmp_path, monkeypatch):
     ref = json.loads((REPO / "BENCH_r16.json").read_text())["parsed"]
     assert set(ref) - set(art) == set(bench.LEFT_OUT) & set(ref)
     assert set(bench.LEFT_OUT) == {"cold_vs_warm", "soak", "tenancy",
-                                   "fleet", "xray"}
+                                   "xray"}
+    assert set(art["fleet"]) >= set(ref["fleet"])
+    assert art["fleet"]["running"] == art["fleet"]["replicas"] == 12
     assert set(art["wire"]) >= set(ref["wire"])
     assert set(art["joint"]) == set(ref["joint"])
     assert set(art["device"]) >= set(ref["device"])

@@ -79,6 +79,10 @@ def test_port_sources_import_no_jax_and_no_reference_package():
             "tenancy/packer.py", "tenancy/service.py",
             "scheduler/defrag.py", "cache/verifier.py",
             "perf/tenancy.py"} <= names
+    # The kubemark control plane.
+    assert {"controller/node.py", "controller/endpoints.py",
+            "kubelet/kubelet.py", "kubelet/__main__.py", "proxy/proxy.py",
+            "proxy/__main__.py"} <= names
     bad = {str(f.relative_to(REPO)): [m for m in _imports(f)
                                       if _forbidden(m)]
            for f in files}
@@ -288,5 +292,58 @@ def test_the_apiserver_binary_loads_no_jax_module():
     mods = [ln.rsplit("|", 1)[1].strip() for ln in lines
             if ln.startswith("import time:") and "|" in ln]
     assert "kubernetes_tpu_torch.apiserver.server" in mods
+    assert [m for m in mods if _forbidden(m)] == []
+    assert [m for m in mods if m == "torch" or m.startswith("torch.")] == []
+
+
+@pytest.mark.parametrize("binary", ["kubelet", "proxy"])
+def test_the_hollow_binaries_load_no_jax_module(binary):
+    """``python -m kubernetes_tpu_torch.kubelet`` (registering its Node)
+    and ``python -m kubernetes_tpu_torch.proxy`` run against the port's
+    apiserver, exit 0 on SIGTERM, and load no ``jax``, no
+    ``kubernetes_tpu`` and no ``torch`` module (``-X importtime``)."""
+    import signal
+    import urllib.request
+    from torch_wire import start_python_apiserver, stop, wait_until
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    api, base = start_python_apiserver()
+    try:
+        extra = ["--node-name", "iso-0"] if binary == "kubelet" else []
+        proc = subprocess.Popen(
+            [sys.executable, "-X", "importtime", "-m",
+             f"kubernetes_tpu_torch.{binary}", "--api-server", base,
+             *extra], cwd=REPO, env=env, stdout=subprocess.DEVNULL,
+            stderr=subprocess.PIPE, text=True)
+        try:
+            lines = []
+            while True:
+                line = proc.stderr.readline()
+                assert line, "".join(lines[-20:])
+                lines.append(line)
+                if line.rstrip().endswith("running"):
+                    break
+            if binary == "kubelet":
+                def registered():
+                    try:
+                        with urllib.request.urlopen(
+                                f"{base}/api/v1/nodes/iso-0",
+                                timeout=30) as resp:
+                            return resp.status == 200
+                    except OSError:
+                        return False
+                wait_until(registered, 60, "the kubelet's Node")
+            proc.send_signal(signal.SIGTERM)
+            lines += proc.stderr.read().splitlines(keepends=True)
+            assert proc.wait(timeout=60) == 0
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            proc.stderr.close()
+    finally:
+        stop(api)
+    mods = [ln.rsplit("|", 1)[1].strip() for ln in lines
+            if ln.startswith("import time:") and "|" in ln]
+    assert f"kubernetes_tpu_torch.{binary}.{binary}" in mods
     assert [m for m in mods if _forbidden(m)] == []
     assert [m for m in mods if m == "torch" or m.startswith("torch.")] == []
