@@ -42,7 +42,7 @@ fails the run with a non-zero exit:
    feasible and infeasible; then timed per call at N = 5,000, P = 1
    (CUDA-graph replay);
 7. single pod at full width: ``schedule(pod)`` then ``assume_pod`` for
-   the 256 pods of a 5,000-node ``mixed`` rig plus one pod that fits
+   the 128 pods of a 5,000-node ``mixed`` rig plus one pod that fits
    nowhere, on ``cuda`` and on ``cpu``: placements, counter and the
    FitError map identical; microseconds per decision on the card, the
    kernel's launches, a split of a decision into ``_compile``,
@@ -63,7 +63,7 @@ fails the run with a non-zero exit:
    metrics 0 crashed pods, 0 device faults and 0 refused binds; wall,
    pods/s, assume/bind time and the kernels' launches of each run;
 10. factory: ``ConfigFactory`` over a ``MemStore`` holding 5,000 nodes
-   and 2,048 pods before ``run()``, on cuda and on cpu, every pod's
+   and 1,024 pods before ``run()``, on cuda and on cpu, every pod's
    nodeName identical, with the time from ``run()`` to the last bind and
    ``last_recovery``; then ``python -m kubernetes_tpu_torch.scheduler
    --device cuda --port 0`` answers /healthz and /configz and exits 0 on
@@ -78,7 +78,7 @@ fails the run with a non-zero exit:
    daemon drain of 4,096 pods: every pod binds as in the fault-free run,
    the fault counters match the injection, and no mode reads ``host``.
 
-13. topology spread: (a) a ``mixed`` drain of 5,000 nodes x 4,096 pods,
+13. topology spread: (a) a ``mixed`` drain of 5,000 nodes x 2,048 pods,
    40% of them carrying a zone DoNotSchedule term (half of those also a
    hostname ScheduleAnyway term), on cuda and cpu, identical; (b) the
    north star with the same annotations: every choice inside its
@@ -199,22 +199,54 @@ fails the run with a non-zero exit:
    process over ``APIClient``: 200 replicas Running, one kubelet
    SIGKILLed and its pods rescheduled, the daemon's ``/debug/vars``
    counting its scan launches, every process stopped (also on failure).
+21. the controller-manager, in a fresh interpreter: (a) kubemark-500's
+   nodes (500 x 64 CPU, 128 GiB, 110 pods) with a DaemonSet, a Deployment
+   of 2,000 replicas at 50m (maxSurge and maxUnavailable 25%) under a
+   PodDisruptionBudget of 1,800 (90%) and a Job of parallelism 100,
+   completions 200, driven round by round by the port's daemon set,
+   deployment, replication, job and disruption controllers (suffix
+   generators seeded) on a ``MemStore`` whose pending pods
+   ``GenericScheduler(device="cuda")`` drains after each round, and on a
+   twin store holding a deep copy of the same objects drained on the CPU:
+   every round the same placements, stores and round-robin counter, no
+   node over capacity, the daemon pods placed by their controller alone;
+   then the Deployment rolled to a new template round by round, each
+   round within maxSurge and maxUnavailable, the same on both sides;
+   (b) the reference's multi-process story
+   (``tests/test_multiprocess_e2e.py``) on the port's binaries: the
+   Python apiserver with token auth and ABAC, the daemon on the card, two
+   ``python -m kubernetes_tpu_torch.controller --leader-elect``, 8
+   kubelet processes (0.6 s beats) and a proxy; through the port's
+   kubectl (``main(argv, out)`` in process): ``apply -f`` of 40
+   replicas with a budget of 36 and ``rollout status``, a changed
+   template applied and ``rollout undo``, ``scale`` to 48, ``drain`` of
+   the busiest node, first under a budget of 49 that refuses every
+   eviction (429s, the drain gives up, every pod stays), then under one
+   that lets one pod fewer go than the node holds (429s retried, the
+   healthy replicas never under its floor, the replacements placed by
+   the daemon on the card), ``explain pod`` naming the failing
+   predicate of a pod that fits nowhere and the node of a placed one;
+   then the leading controller-manager SIGKILLed and a scale to 52 that
+   the standby carries out with no replica created twice; the daemon's
+   ``/debug/vars`` counting its scan launches; every process stopped
+   (also on failure).
 
 Phase 2b includes the f32 route of the joint repair and topology spread:
 a non-integral score bias and an extra mask with all-false rows.  It
 prints one ``{"kernels": [...]}`` line (with each kernel's launches on
 its phase's path, in the two daemon runs of phase 9 and on the paths of
-phases 13-20; ``scan_chunk``'s carries phase 20a's fleet chunk), then the
+phases 13-21; ``scan_chunk``'s carries phase 20a's fleet chunk), then the
 card line, and last ``{"ok": true, "device": {...}}``.  ``--bench-only``
 runs phases 1 and 18, ``--slice-only`` phases 1 and 19 (neither prints
-the result lines), ``--fleet-only`` phases 1 and 20 and prints the
-phase's record as its last line: the whole smoke runs phase 20 so, in a
-fresh interpreter.
+the result lines), ``--fleet-only`` phases 1 and 20 and ``--cm-only``
+phases 1 and 21, each printing the phase's record as its last line: the
+whole smoke runs phases 20 and 21 so, each in a fresh interpreter.
 """
 
 from __future__ import annotations
 
 import argparse
+import collections
 import json
 import statistics
 import subprocess
@@ -3782,9 +3814,9 @@ def phase_verifier(ctx: dict, card: str, dev: str = "cuda") -> dict:
     return {"launches": counts, "readback_us": readback_us}
 
 
-# 19a's cuda-against-cpu tenancy rig: 2,048 pods (at 4,096 its cpu side
-# took 29-43 s), cut in depth to make room for phase 20.
-TENANCY_PARITY_PODS = 2048
+# 19a's cuda-against-cpu tenancy rig: 1,024 pods (at 4,096 its cpu side
+# took 29-43 s, at 2,048 28 s), cut in depth for phases 20 and 21.
+TENANCY_PARITY_PODS = 1024
 
 
 def phase_slice(args, card: str, dev: str = "cuda",
@@ -3868,12 +3900,16 @@ def fleet_rc(replicas: int) -> dict:
                              "resources": {"requests": {"cpu": "50m"}}}]}}}}
 
 
+def labelled(objs: list, key: str, value: str) -> list:
+    return [o for o in objs
+            if ((o.get("metadata") or {}).get("labels") or {}).get(key)
+            == value]
+
+
 def fleet_pods(objs: list) -> list:
     """The RC's live pods among ``objs``."""
-    return [o for o in objs
-            if ((o.get("metadata") or {}).get("labels") or {}).get("run")
-            == FLEET_RC and not (o.get("metadata") or {})
-            .get("deletionTimestamp")]
+    return [o for o in labelled(objs, "run", FLEET_RC)
+            if not (o.get("metadata") or {}).get("deletionTimestamp")]
 
 
 def running(pods: list) -> list:
@@ -4449,33 +4485,6 @@ def process_state() -> str:
             f"{os.getloadavg()[0]:.2f}")
 
 
-def phase_fleet_child(args) -> dict:
-    """20 in a fresh interpreter (``chip_smoke.py --fleet-only``): after
-    phases 1-19 this process's host work ran many times slower than the
-    same fleet alone (PERF.md, section 6).  Its lines are echoed; its last
-    line is the phase's record.  The child is stopped on any failure."""
-    print(f"phase 20: the smoke's process before the child: "
-          f"{process_state()}", flush=True)
-    cmd = [sys.executable, __file__, "--fleet-only",
-           "--fleet-nodes", str(args.fleet_nodes),
-           "--fleet-replicas", str(args.fleet_replicas)]
-    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, text=True)
-    last = ""
-    try:
-        for line in proc.stdout:
-            print(line, end="", flush=True)
-            last = line
-        rc = proc.wait()
-    finally:
-        if proc.poll() is None:
-            proc.kill()
-            proc.wait()
-        proc.stdout.close()
-    if rc != 0:
-        fail(f"20: python3 chip_smoke.py --fleet-only exited {rc}")
-    return json.loads(last)["fleet"]
-
-
 def phase_fleet(args, card: str, dev: str = "cuda") -> dict:
     """20: the kubemark control plane on the card, 20a-20d (20b first:
     fleet_metrics builds and stops its own fleet, and 20c runs on 20a's)."""
@@ -4514,6 +4523,805 @@ def phase_fleet(args, card: str, dev: str = "cuda") -> dict:
     return {"paths": out, "chunk": chunk}
 
 
+# -- phase 21: the controller-manager ------------------------------------
+
+CM_NODES = FLEET_NODES        # 21a: kubemark-500's hollow nodes
+CM_REPLICAS = 2000            # 21a's Deployment, 50m each
+CM_JOB = (100, 200)           # 21a's Job: parallelism, completions
+CM_SEED = 21                  # the controllers' suffix generators (21a)
+CM_SURGE = CM_UNAVAILABLE = "25%"   # the Deployments' rolling bounds
+CM_ROLL_STEPS = 12            # 21a's steps per phase, at most
+# 21b's Deployment, scaled by 1.2, then 1.3: cut from the 200 of 20d.
+# The controller-manager's clients run at the reference's 5 requests/s
+# (restclient's default; the binary has no flag for it), so a rollout
+# of N replicas is ~2N requests; 21b's times at 200 and at 60 are in
+# PERF.md, section 6 (at 60 the whole smoke came within 40 s of its
+# time limit).
+CM_WIRE_REPLICAS = 40
+CM_LEASE = ("2.0", "1.5", "0.3")   # tests/test_multiprocess_e2e.py:97-103
+# The PodDisruptionBudgets ask for 90% of the Deployment as an integer:
+# a percentage is resolved against the scale of each pod's owning
+# controllers, and a Deployment's pod has two (its ReplicaSet and the
+# Deployment itself select it), which both packages' disruption
+# controllers treat as the reference's failsafe (no eviction allowed).
+CM_PDB_SHARE = 0.9
+# tests/test_multiprocess_e2e.py:40-51: tokens and ABAC lines.
+CM_TOKENS = ("admin-token,admin,1\nsched-token,scheduler,2\n"
+             "cm-token,controller-manager,3\nkubelet-token,kubelet,4\n"
+             "proxy-token,proxy,5\nviewer-token,viewer,6,readonly\n")
+CM_ABAC = "\n".join([
+    '{"user": "admin"}', '{"user": "scheduler"}',
+    '{"user": "controller-manager"}', '{"user": "kubelet"}',
+    '{"user": "proxy"}', '{"group": "readonly", "readonly": true}']) + "\n"
+
+
+def cm_deployment(name: str, replicas: int, version: str = "v1") -> dict:
+    return {"kind": "Deployment",
+            "metadata": {"name": name, "namespace": "default"},
+            "spec": {"replicas": replicas,
+                     "selector": {"matchLabels": {"app": name}},
+                     "strategy": {"type": "RollingUpdate",
+                                  "rollingUpdate": {
+                                      "maxSurge": CM_SURGE,
+                                      "maxUnavailable": CM_UNAVAILABLE}},
+                     "template": {
+                         "metadata": {"labels": {"app": name,
+                                                 "version": version}},
+                         "spec": {"containers": [{
+                             "name": "app", "image": f"app:{version}",
+                             "resources": {"requests": {"cpu": "50m"}}}]}}}}
+
+
+def cm_pdb(name: str, replicas: int) -> dict:
+    return {"metadata": {"name": f"{name}-pdb", "namespace": "default"},
+            "spec": {"minAvailable": int(CM_PDB_SHARE * replicas),
+                     "selector": {"app": name}}}
+
+
+def cm_bounds(replicas: int) -> tuple[int, int]:
+    """maxSurge (rounded up) and maxUnavailable (rounded down) of
+    CM_SURGE / CM_UNAVAILABLE at ``replicas``."""
+    import math
+    return (math.ceil(float(CM_SURGE[:-1]) / 100 * replicas),
+            math.floor(float(CM_UNAVAILABLE[:-1]) / 100 * replicas))
+
+
+def alive(o: dict) -> bool:
+    return not (o.get("metadata") or {}).get("deletionTimestamp") and \
+        (o.get("status") or {}).get("phase") not in ("Succeeded", "Failed")
+
+
+class CMSide:
+    """21a, one side: the daemon set, deployment, replication, job and
+    disruption controllers of the port on a ``MemStore`` (suffix
+    generators seeded), their watch events replayed in store order, and a
+    ``GenericScheduler`` on ``dev`` that drains every pending pod after
+    each round of syncs.  The kubelet's part is played by the step: a
+    bound pod without a phase becomes Running and Ready, a Job's pod
+    Succeeded (the hollow kubelet's run-duration)."""
+
+    def __init__(self, store, dev: str):
+        import random
+        from kubernetes_tpu_torch.api import types as api
+        from kubernetes_tpu_torch.controller import (daemonset, deployment,
+                                                     disruption, job,
+                                                     replication)
+        from kubernetes_tpu_torch.engine.generic_scheduler import (
+            GenericScheduler)
+        self.store, self.dev, self.api = store, dev, api
+        self.ds = daemonset.DaemonSetController(store)
+        self.dep = deployment.DeploymentController(store)
+        self.rm = replication.ReplicationManager(store)
+        self.job = job.JobController(store)
+        self.pdb = disruption.DisruptionController(store)
+        for i, c in enumerate((self.ds, self.rm, self.job)):
+            c._rand = random.Random(CM_SEED + i)
+        self.watches = [
+            (store.watch(tuple(h), 0), h) for h in (
+                {"daemonsets": self.ds._on_ds, "nodes": self.ds._on_node,
+                 "pods": self.ds._on_pod},
+                {"deployments": self.dep._on_deployment,
+                 "replicasets": self.dep._on_rs, "pods": self.dep._on_pod},
+                {"replicasets": lambda t, o: self.rm._on_rc(
+                    "replicasets", t, o), "pods": self.rm._on_pod},
+                {"jobs": self.job._on_job, "pods": self.job._on_pod},
+                {"poddisruptionbudgets": self.pdb._on_pdb,
+                 "pods": self.pdb._on_pod,
+                 **{k: self.pdb._owner_handler(k)
+                    for k in self.pdb._owners}})]
+        self.sched = GenericScheduler(device=dev)
+        for o in store.list("nodes")[0]:
+            self.sched.cache.add_node(api.node_from_json(o))
+        self.cached: dict = {}
+
+    def stop(self) -> None:
+        for w, _ in self.watches:
+            w.stop()
+
+    def feed(self) -> None:
+        for w, handlers in self.watches:
+            while (ev := w.next(timeout=0)) is not None:
+                handlers[ev.kind](ev.type, ev.object)
+
+    def sync_cache(self) -> None:
+        """The scheduler cache holds every live bound pod of the store."""
+        live = {}
+        for o in self.store.list("pods")[0]:
+            if alive(o) and (o.get("spec") or {}).get("nodeName"):
+                live[f"{o['metadata']['namespace']}/"
+                     f"{o['metadata']['name']}"] = o
+        for key in [k for k in self.cached if k not in live]:
+            self.sched.cache.remove_pod(self.cached.pop(key))
+        for key, o in live.items():
+            if key not in self.cached:
+                pod = self.api.pod_from_json(o)
+                self.sched.cache.add_pod(pod)
+                self.cached[key] = pod
+
+    def step(self) -> dict:
+        """One round: the controllers' syncs, the drain of every pending
+        pod (in name order), the binds and the kubelet's part.  Returns
+        what the round placed, by pod key."""
+        self.feed()
+        self.ds.sync_all()
+        self.dep.sync_all()
+        self.feed()
+        self.rm.sync_all()
+        self.job.sync_all()
+        self.pdb.sync_all()
+        self.feed()
+        # The rolling bounds are read here, between the controllers'
+        # writes and the kubelet's: the ReplicaSets' replicas and the
+        # Running pods of each app.
+        pods = self.store.list("pods")[0]
+        self.mid = {
+            "rs_total": collections.Counter(), "running": collections.Counter(
+                ((o["metadata"].get("labels") or {}).get("app")
+                 for o in running([o for o in pods if alive(o)])))}
+        for o in self.store.list("replicasets")[0]:
+            self.mid["rs_total"][(o["metadata"].get("labels") or {})
+                                 .get("app")] += int(o["spec"].get(
+                                     "replicas", 0))
+        self.sync_cache()
+        pending = sorted((o for o in self.store.list("pods")[0]
+                          if alive(o) and not (o.get("spec") or {})
+                          .get("nodeName")),
+                         key=lambda o: (o["metadata"]["namespace"],
+                                        o["metadata"]["name"]))
+        self.sched.listers.replica_sets = [
+            self.api.rs_from_json(o)
+            for o in self.store.list("replicasets")[0]]
+        pods = [self.api.pod_from_json(o) for o in pending]
+        placed = [n for _, pl in self.sched.schedule_batch_stream(
+            pods, chunk_size=min(CHUNK, len(pods))) for n in pl] \
+            if pods else []
+        out = {}
+        for pod, node in zip(pods, placed):
+            out[pod.key] = node
+            if node is not None:
+                self.store.bind(pod.namespace, pod.name, node)
+        for o in sorted(self.store.list("pods")[0],
+                        key=lambda o: o["metadata"]["name"]):
+            if (o.get("spec") or {}).get("nodeName") and \
+                    not (o.get("status") or {}).get("phase"):
+                if ((o["metadata"].get("labels") or {}).get("job-name")):
+                    o["status"] = {"phase": "Succeeded"}
+                else:
+                    o["status"] = {"phase": "Running", "conditions": [
+                        {"type": "Ready", "status": "True"}]}
+                self.store.update("pods", o)
+        self.sync_cache()
+        self.feed()
+        return out
+
+    def state(self) -> dict:
+        """The store's pods (node, phase), ReplicaSets' replicas and the
+        Job's, Deployment's and budget's status, for the twin check."""
+        def status(kind):
+            return {o["metadata"]["name"]: {
+                k: v for k, v in (o.get("status") or {}).items()
+                if k != "completionTime"} for o in self.store.list(kind)[0]}
+        return {"pods": {o["metadata"]["name"]: (
+                    (o.get("spec") or {}).get("nodeName"),
+                    (o.get("status") or {}).get("phase"))
+                    for o in self.store.list("pods")[0]},
+                "replicasets": {o["metadata"]["name"]: o["spec"]["replicas"]
+                                for o in self.store.list("replicasets")[0]},
+                "jobs": status("jobs"), "deployments": status("deployments"),
+                "poddisruptionbudgets": status("poddisruptionbudgets"),
+                "counter": int(self.sched.last_node_index)}
+
+
+def cm_check_step(what: str, side: CMSide, name: str, replicas: int,
+                  rolling: bool) -> dict:
+    """No node over capacity; in a rollout, between the controllers'
+    writes and the kubelet's, the ReplicaSets' replicas sum to at most
+    replicas + maxSurge and at least replicas - maxUnavailable of the
+    Deployment's pods are Running.  Returns those two counts."""
+    pods = side.store.list("pods")[0]
+    over = wire_over_capacity(side.store.list("nodes")[0],
+                              [o for o in pods if alive(o)])
+    if over:
+        fail(f"{what}: {over} nodes over capacity")
+    surge, unavail = cm_bounds(replicas)
+    total = side.mid["rs_total"][name]
+    up = side.mid["running"][name]
+    if rolling and total > replicas + surge:
+        fail(f"{what}: the ReplicaSets ask for {total} replicas, over "
+             f"{replicas} + maxSurge {surge}")
+    if rolling and up < replicas - unavail:
+        fail(f"{what}: {up} replicas Running, under {replicas} - "
+             f"maxUnavailable {unavail}")
+    return {"rs_total": total, "running": up}
+
+
+def phase_cm_twins(nodes: int, replicas: int, card: str,
+                   dev: str = "cuda") -> dict:
+    """21a: kubemark-500's nodes with a DaemonSet, a Deployment of
+    ``replicas`` at 50m under a PodDisruptionBudget and a Job, driven
+    round by round by the port's controllers on a ``MemStore`` whose
+    pending pods ``GenericScheduler(device=dev)`` drains, and on a twin
+    store (a deep copy of the same objects) drained on the CPU: every
+    round the same placements, the same stores and the same round-robin
+    counter, no node over capacity; then the Deployment rolled to a new
+    template round by round within its bounds, the same on both sides."""
+    import copy
+    from kubernetes_tpu_torch.api import types as api
+    from kubernetes_tpu_torch.apiserver.memstore import MemStore
+
+    label = card if dev == "cuda" else dev
+    name = "cm-web"
+    t0 = time.perf_counter()
+    store = MemStore()
+    for i in range(nodes):
+        store.create("nodes", api.node_to_json(fleet_node(api,
+                                                          f"cm-{i:03d}")))
+    store.create("daemonsets", {
+        "metadata": {"name": "cm-logd", "namespace": "default"},
+        "spec": {"template": {
+            "metadata": {"labels": {"app": "cm-logd"}},
+            "spec": {"containers": [{"name": "logd", "resources": {
+                "requests": {"cpu": "10m", "memory": "32Mi"}}}]}}}})
+    store.create("deployments", cm_deployment(name, replicas))
+    store.create("poddisruptionbudgets", cm_pdb(name, replicas))
+    parallelism, completions = CM_JOB
+    store.create("jobs", {
+        "metadata": {"name": "cm-batch", "namespace": "default"},
+        "spec": {"parallelism": parallelism, "completions": completions,
+                 "template": {
+                     "metadata": {"labels": {"app": "cm-batch"},
+                                  "annotations": {
+                                      "kubemark.kubernetes.io/"
+                                      "run-duration": "0.1"}},
+                     "spec": {"containers": [{"name": "c", "resources": {
+                         "requests": {"cpu": "100m"}}}]}}}})
+    twin = MemStore()
+    for kind in ("nodes", "daemonsets", "deployments",
+                 "poddisruptionbudgets", "jobs"):
+        for o in store.list(kind)[0]:
+            twin.create(kind, copy.deepcopy(o))
+    # The side on ``dev`` and its twin on the CPU (keys apart from the
+    # devices, so a CPU rehearsal runs two sides too).
+    sides = {"main": CMSide(store, dev), "twin": CMSide(twin, "cpu")}
+    secs = {"main": 0.0, "twin": 0.0}
+    rounds: list = []
+    scheduled: set = set()      # every pod the scheduler placed
+
+    def round_(what: str, rolling: bool) -> dict:
+        placed = {}
+        for d, side in sides.items():
+            t1 = time.perf_counter()
+            placed[d] = side.step()
+            secs[d] += time.perf_counter() - t1
+        states = {d: side.state() for d, side in sides.items()}
+        if placed["main"] != placed["twin"] or \
+                states["main"] != states["twin"]:
+            diff = [k for k in placed["main"]
+                    if placed["main"][k] != placed["twin"].get(k)][:5]
+            keys = [k for k in states["main"]
+                    if states["main"][k] != states["twin"][k]]
+            fail(f"21a: {what}: {dev} and cpu differ (placements {diff}, "
+                 f"state {keys}, counters {states['main']['counter']} / "
+                 f"{states['twin']['counter']})")
+        if any(n is None for n in placed["main"].values()):
+            fail(f"21a: {what}: a pending pod fit no node")
+        scheduled.update(placed["main"])
+        counts = cm_check_step(f"21a: {what}", sides["main"], name,
+                               replicas, rolling)
+        rounds.append({"what": what, "placed": len(placed["main"]),
+                       **counts})
+        return states["main"]
+
+    zero_counts()
+    try:
+        state = {}
+        for i in range(CM_ROLL_STEPS):
+            state = round_(f"bring-up round {i}", False)
+            dep = state["deployments"][name]
+            job = state["jobs"]["cm-batch"]
+            if dep.get("availableReplicas") == replicas and \
+                    job.get("succeeded") == completions:
+                break
+        else:
+            fail(f"21a: not up after {CM_ROLL_STEPS} rounds: {state}")
+        pods = store.list("pods")[0]
+        daemons = labelled(pods, "daemonset-name", "cm-logd")
+        if sorted(o["spec"]["nodeName"] for o in daemons) != sorted(
+                o["metadata"]["name"] for o in store.list("nodes")[0]):
+            fail(f"21a: {len(daemons)} daemon pods, not one per node")
+        if any(f"default/{o['metadata']['name']}" in scheduled
+               for o in daemons):
+            fail("21a: the scheduler placed a daemon pod")
+        first = dict(rounds[0])
+        for d, side in sides.items():
+            side.store.update("deployments", {
+                **side.store.get("deployments", f"default/{name}"),
+                "spec": cm_deployment(name, replicas, "v2")["spec"]})
+        for i in range(CM_ROLL_STEPS):
+            state = round_(f"rollout round {i}", True)
+            rs = state["replicasets"]
+            dep = state["deployments"][name]
+            if sorted(rs.values()) == [0, replicas] and \
+                    dep.get("updatedReplicas") == replicas and \
+                    dep.get("availableReplicas") == replicas:
+                break
+        else:
+            fail(f"21a: the rollout not done after {CM_ROLL_STEPS} rounds")
+        counts = kernel_counts()
+        if dev == "cuda" and counts["scan_chunk"] < 1:
+            fail("21a: the drains launched no scan kernel")
+        job = state["jobs"]["cm-batch"]
+        pdb = state["poddisruptionbudgets"][f"{name}-pdb"]
+    finally:
+        for side in sides.values():
+            side.stop()
+    rolled = [r for r in rounds if r["what"].startswith("rollout")]
+    print(f"phase 21a: {label}: {nodes} nodes, a DaemonSet, a Deployment "
+          f"of {replicas} at 50m (maxSurge {CM_SURGE}, maxUnavailable "
+          f"{CM_UNAVAILABLE}) under a budget of {pdb['desiredHealthy']} "
+          f"and a Job of parallelism {parallelism}, completions "
+          f"{completions}: up in {len(rounds) - len(rolled)} rounds "
+          f"({len(daemons)} daemon pods placed by their controller, one "
+          f"per node; the first round's drain {first['placed']} pods; the "
+          f"Job {job}); rolled to v2 in {len(rolled)} rounds, the "
+          f"ReplicaSets' replicas at most "
+          f"{max(r['rs_total'] for r in rolled)} and Running at least "
+          f"{min(r['running'] for r in rolled)} per round; budget "
+          f"{pdb}; every round's placements, stores and counter "
+          f"({state['counter']}) equal on {dev} and cpu, 0 nodes over "
+          f"capacity; drains and syncs {secs['main']:.3f} s on {dev}, "
+          f"{secs['twin']:.3f} s on cpu, {time.perf_counter() - t0:.3f} s "
+          f"in all; launches {counts}")
+    return {"counts": counts, "rounds": len(rounds), "secs": secs}
+
+
+def cm_kubectl(base: str, *argv: str, ok: bool = True) -> tuple:
+    """The port's kubectl in process, as the admin: (exit code, output)."""
+    import contextlib
+    import io
+    from kubernetes_tpu_torch.kubectl.__main__ import main as kubectl
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stderr(err):
+        rc = kubectl(["--server", base, "--token", "admin-token", *argv],
+                     out=out)
+    if ok and rc != 0:
+        fail(f"21b: kubectl {' '.join(argv)} exited {rc}: "
+             f"{out.getvalue()[-1000:]} {err.getvalue()[-1000:]}")
+    return rc, out.getvalue() + err.getvalue()
+
+
+def cm_leader(client) -> str:
+    """The controller-manager lease's holder (``hostname-pid``)."""
+    ep = client.get("endpoints", "kube-system/kube-controller-manager") \
+        or {}
+    ann = ((ep.get("metadata") or {}).get("annotations") or {}).get(
+        "control-plane.alpha.kubernetes.io/leader")
+    return json.loads(ann).get("holderIdentity", "") if ann else ""
+
+
+def phase_cm_wire(replicas: int, card: str, dev: str = "cuda") -> dict:
+    """21b: the reference's multi-process story on the port's binaries:
+    the Python apiserver with token auth and ABAC, the daemon on
+    ``dev``, two controller-managers under ``--leader-elect``,
+    WIRE_KUBELETS kubelets and a proxy, driven through the port's kubectl:
+    apply and roll out a Deployment under a budget, roll a new template
+    out and back, scale, drain the busiest node, explain a pod that fits
+    nowhere and a placed one; then the leading controller-manager
+    SIGKILLed and a scale the standby carries out.  Every process is
+    stopped, also on failure."""
+    import tempfile
+    from kubernetes_tpu_torch.client.http import APIClient, APIError
+    from kubernetes_tpu_torch.controller.deployment import (HASH_LABEL,
+                                                            template_hash)
+
+    label = card if dev == "cuda" else dev
+    name = "cm-wire"
+    scaled, failover = int(replicas * 1.2), int(replicas * 1.3)
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="kt_cm_")
+    with open(f"{tmp}/tokens.csv", "w") as f:
+        f.write(CM_TOKENS)
+    with open(f"{tmp}/abac.jsonl", "w") as f:
+        f.write(CM_ABAC)
+    children: dict = {}
+    codes: dict = {}
+    times: dict = {}
+
+    def mark(what: str) -> None:
+        # Progress, so a failed run still shows where its time went.
+        print(f"phase 21b: {what} at {time.perf_counter() - t0:.3f} s",
+              flush=True)
+
+    try:
+        api_child = children["apiserver"] = Child([
+            sys.executable, "-m", "kubernetes_tpu_torch.apiserver",
+            "--port", "0", "--token-auth-file", f"{tmp}/tokens.csv",
+            "--authorization-policy-file", f"{tmp}/abac.jsonl"])
+        line = api_child.wait_line("listening on")
+        base = "http://" + line.rsplit(" ", 1)[1].strip()
+        admin = APIClient(base, qps=5000, burst=5000, token="admin-token")
+        wait_for("21b: the authenticated apiserver", lambda: admin.list(
+            "nodes")[1] >= 0, 60)
+        cmd = [sys.executable, "-m", "kubernetes_tpu_torch.scheduler",
+               "--api-server", base, "--kube-api-token", "sched-token",
+               "--port", "0", "--kube-api-qps", "5000",
+               "--kube-api-burst", "5000"]
+        if dev != "cuda":
+            cmd += ["--device", dev]
+        sched = children["scheduler"] = Child(cmd, stdout=subprocess.PIPE)
+        port = json.loads(sched.proc.stdout.readline() or "{}").get("port")
+        if port is None:
+            fail(f"21b: the daemon binary did not start: {sched.tail()}")
+        for i in range(2):
+            children[f"cm-{i}"] = Child([
+                sys.executable, "-m", "kubernetes_tpu_torch.controller",
+                "--api-server", base, "--kube-api-token", "cm-token",
+                "--port", "-1", "--leader-elect",
+                "--leader-elect-lease-duration", CM_LEASE[0],
+                "--leader-elect-renew-deadline", CM_LEASE[1],
+                "--leader-elect-retry-period", CM_LEASE[2]])
+        for i in range(WIRE_KUBELETS):
+            children[f"ck-{i}"] = Child([
+                sys.executable, "-m", "kubernetes_tpu_torch.kubelet",
+                "--api-server", base, "--node-name", f"ck-{i}",
+                "--kube-api-token", "kubelet-token",
+                "--cpu", "64000", "--memory-gib", "128", "--pods", "110",
+                "--heartbeat-period", str(DEATH_HEARTBEAT_S)])
+        children["proxy"] = Child([
+            sys.executable, "-m", "kubernetes_tpu_torch.proxy",
+            "--api-server", base, "--kube-api-token", "proxy-token"])
+        children["proxy"].wait_line("hollow kube-proxy running")
+        wait_for(f"21b: {WIRE_KUBELETS} kubelet processes Ready", lambda:
+                 sum(ready_status(o) == "True" for o in admin.list(
+                     "nodes")[0]) == WIRE_KUBELETS, 120, 0.2)
+        pids = {c.pid: k for k, c in children.items()
+                if k.startswith("cm-")}
+        leader = wait_for("21b: a controller-manager holds the lease",
+                          lambda: cm_leader(admin), 60, 0.1)
+        lead = pids.get(int(leader.rsplit("-", 1)[1]))
+        if lead is None:
+            fail(f"21b: the lease holder {leader!r} is none of {pids}")
+        times["ready"] = time.perf_counter() - t0
+        mark("ready")
+
+        def pods() -> list:
+            return labelled([o for o in admin.list("pods")[0] if alive(o)],
+                            "app", name)
+
+        def rollout(what: str) -> None:
+            rc, text = cm_kubectl(base, "rollout", "status", "deploy", name,
+                                  "--timeout", "180", ok=False)
+            if rc != 0:
+                fail(f"21b: rollout status of {what} exited {rc}: "
+                     f"{text[-1000:]}")
+
+        # apply -f, then the budget and a rollout.
+        manifest = f"{tmp}/{name}.json"
+        with open(manifest, "w") as f:
+            json.dump(cm_deployment(name, replicas), f)
+        t1 = time.perf_counter()
+        cm_kubectl(base, "apply", "-f", manifest)
+        admin.create("poddisruptionbudgets", cm_pdb(name, replicas))
+        rollout("v1")
+        times["apply_to_running"] = time.perf_counter() - t1
+        mark("v1 rolled out")
+        v1 = template_hash(cm_deployment(name, replicas)["spec"]
+                           ["template"])
+        # A changed template: rolled out, then undone.
+        with open(manifest, "w") as f:
+            json.dump(cm_deployment(name, replicas, "v2"), f)
+        t1 = time.perf_counter()
+        cm_kubectl(base, "apply", "-f", manifest)
+        wait_for("21b: the v2 ReplicaSet", lambda: len(labelled(
+            admin.list("replicasets")[0], "app", name)) == 2, 60, 0.1)
+        rollout("v2")
+        if {o["metadata"]["labels"]["version"] for o in pods()} != {"v2"}:
+            fail("21b: v2 rolled out, but not every pod is v2")
+        times["roll_v2"] = time.perf_counter() - t1
+        mark("v2 rolled out")
+        t1 = time.perf_counter()
+        cm_kubectl(base, "rollout", "undo", "deploy", name)
+
+        def undone():
+            ps = pods()
+            return len(ps) == replicas and all(
+                o["metadata"]["labels"].get(HASH_LABEL) == v1 and
+                (o.get("status") or {}).get("phase") == "Running"
+                for o in ps)
+        wait_for("21b: rollout undo back to v1", undone, 180, 0.2)
+        rollout("undo")
+        times["undo"] = time.perf_counter() - t1
+        mark("undone")
+        _rc, history = cm_kubectl(base, "rollout", "history", "deploy",
+                                  name)
+        # scale
+        t1 = time.perf_counter()
+        cm_kubectl(base, "scale", "deploy", name, "--replicas",
+                   str(scaled))
+        wait_for(f"21b: {scaled} Running after kubectl scale", lambda: len(
+            running(pods())) == scaled == len(pods()), 180, 0.2)
+        times["scale"] = time.perf_counter() - t1
+        mark("scaled")
+        # drain the busiest node under the budget, twice.  The disruption
+        # controller allows an eviction while currentHealthy >=
+        # desiredHealthy (disruption.go:568).  First a minAvailable over
+        # the healthy count: every eviction is refused, and the drain
+        # gives up at its --timeout.  Then scaled - k + 2, which lets
+        # k - 1 of the node's k pods go: the healthy replicas may fall to
+        # scaled - k + 1 and no lower, and the last eviction waits for a
+        # replacement unless one is Ready by then.
+        ps = pods()
+        victim = max(sorted({o["spec"]["nodeName"] for o in ps}),
+                     key=lambda nd: sum(o["spec"]["nodeName"] == nd
+                                        for o in ps))
+        on_victim = {o["metadata"]["name"] for o in ps
+                     if o["spec"]["nodeName"] == victim}
+        min_available = scaled - len(on_victim) + 2
+        floor = min_available - 1
+        pdb_key = f"default/{name}-pdb"
+
+        def budget() -> dict:
+            return admin.get("poddisruptionbudgets",
+                             pdb_key).get("status") or {}
+
+        def budget_to(least: int) -> None:
+            def written() -> bool:
+                pdb = admin.get("poddisruptionbudgets", pdb_key)
+                pdb["spec"]["minAvailable"] = least
+                try:
+                    admin.update("poddisruptionbudgets", pdb)
+                except APIError as err:
+                    if err.status != 409:  # the controller's status write
+                        raise
+                    return False
+                return True
+            wait_for(f"21b: the budget's minAvailable {least} written",
+                     written, 30)
+            wait_for(f"21b: the budget's status at minAvailable {least}",
+                     lambda: budget() == {
+                         "disruptionAllowed": scaled >= least,
+                         "currentHealthy": scaled, "desiredHealthy": least,
+                         "expectedPods": scaled}, 30)
+        # The evictions the budget refused: kubectl retries a 429 until
+        # its --timeout and prints only the evictions granted.
+        refused: list = []
+        evict = APIClient.evict
+
+        def evict_counted(client, namespace: str, pod: str) -> None:
+            try:
+                evict(client, namespace, pod)
+            except APIError as err:
+                refused.append(err.status)
+                raise
+        APIClient.evict = evict_counted
+        try:
+            budget_to(scaled + 1)
+            rc, held = cm_kubectl(base, "drain", victim, "--timeout", "1",
+                                  ok=False)
+        finally:
+            APIClient.evict = evict
+        still = {o["metadata"]["name"] for o in pods()
+                 if o["spec"]["nodeName"] == victim}
+        if rc != 1 or " evicted" in held or still != on_victim or \
+                set(refused) != {429} or len(refused) < len(on_victim):
+            fail(f"21b: a budget of {scaled + 1} over {scaled} healthy "
+                 f"replicas did not hold the drain: exit {rc}, "
+                 f"{len(on_victim - still)} pods gone, refused {refused}: "
+                 f"{held[-500:]}")
+        held_429 = len(refused)
+        refused.clear()
+        budget_to(min_available)
+        healthy: list = []
+        counted: list = []      # the budget status' currentHealthy
+        stop_sampling = threading.Event()
+
+        def sample() -> None:
+            while not stop_sampling.is_set():
+                healthy.append(sum(
+                    1 for o in pods()
+                    if (o.get("status") or {}).get("phase") == "Running"
+                    and any(c.get("type") == "Ready" and
+                            c.get("status") == "True" for c in
+                            (o.get("status") or {}).get("conditions")
+                            or ())))
+                counted.append(budget().get("currentHealthy", scaled))
+                stop_sampling.wait(0.1)
+        sampler = threading.Thread(target=sample, daemon=True)
+        sampler.start()
+        t1 = time.perf_counter()
+        APIClient.evict = evict_counted
+        try:
+            _rc, drained = cm_kubectl(base, "drain", victim, "--timeout",
+                                      "120")
+
+            def replaced():
+                ps = pods()
+                return len(ps) == scaled and len(running(ps)) == scaled \
+                    and not any(o["spec"]["nodeName"] == victim or
+                                o["metadata"]["name"] in on_victim
+                                for o in ps)
+            wait_for(f"21b: {victim}'s pods replaced off it", replaced,
+                     180, 0.2)
+        finally:
+            APIClient.evict = evict
+            stop_sampling.set()
+            sampler.join(timeout=10)
+        times["drain"] = time.perf_counter() - t1
+        mark("drained")
+        evicted = drained.count(" evicted")
+        if evicted != len(on_victim):
+            fail(f"21b: the drain evicted {evicted} of {len(on_victim)} "
+                 f"pods: {drained[-500:]}")
+        if set(refused) != {429}:
+            fail(f"21b: the drain's refused evictions {refused}, not one "
+                 f"or more 429s from the budget")
+        if min(healthy) < floor:
+            fail(f"21b: {min(healthy)} healthy replicas during the drain, "
+                 f"under the budget's floor {floor} (minAvailable "
+                 f"{min_available})")
+        if not floor <= min(counted) < scaled:
+            fail(f"21b: the budget's status counted down to "
+                 f"{min(counted)} healthy, not between its floor {floor} "
+                 f"and {scaled - 1}")
+        # explain: a pod that fits no node, and a placed one.
+        admin.create("pods", {
+            "metadata": {"name": "cm-huge", "namespace": "default"},
+            "spec": {"containers": [{"name": "c", "resources": {
+                "requests": {"cpu": "100"}}}]}})
+        sched_url = f"http://127.0.0.1:{port}"
+
+        def explained():
+            rc, text = cm_kubectl(base, "explain", "pod", "cm-huge",
+                                  "--scheduler", sched_url, ok=False)
+            return text if rc == 0 else None
+        why = wait_for("21b: kubectl explain of the pod that fits nowhere",
+                       explained, 60, 0.5)
+        if "PodFitsResources" not in why or "unschedulable" not in why:
+            fail(f"21b: explain names no failing predicate: {why}")
+        # A placed pod's decision, while the recorder's ring still holds
+        # it: a pod of its own, explained as soon as it is bound.
+        admin.create("pods", {
+            "metadata": {"name": "cm-probe", "namespace": "default"},
+            "spec": {"containers": [{"name": "c", "resources": {
+                "requests": {"cpu": "50m"}}}]}})
+        node = wait_for("21b: the probe pod bound", lambda: (admin.get(
+            "pods", "default/cm-probe").get("spec") or {}).get("nodeName"),
+            60, 0.1)
+        _rc, where = cm_kubectl(base, "explain", "pod", "cm-probe",
+                                "--scheduler", sched_url)
+        if f"Node:\t{node}" not in where:
+            fail(f"21b: explain does not name the pod's node: {where}")
+        admin.delete("pods", "default/cm-huge")
+        admin.delete("pods", "default/cm-probe")
+        mark("explain")
+        # failover: SIGKILL the leader, then scale; the standby carries it.
+        t1 = time.perf_counter()
+        children[lead].proc.kill()
+        children[lead].proc.wait()
+        codes[lead] = "SIGKILL"
+        standby = next(k for k in pids.values() if k != lead)
+        cm_kubectl(base, "scale", "deploy", name, "--replicas",
+                   str(failover))
+        most = [0]
+
+        def carried():
+            ps = pods()
+            most[0] = max(most[0], len(ps))
+            holder = cm_leader(admin)
+            return holder and pids.get(int(holder.rsplit("-", 1)[1])) \
+                == standby and len(running(ps)) == failover == len(ps)
+        wait_for(f"21b: the standby takes the lease and reaches "
+                 f"{failover} Running", carried, 120, 0.1)
+        takeover_s = time.perf_counter() - t1
+        for _ in range(20):          # two seconds of the standby's syncs
+            most[0] = max(most[0], len(pods()))
+            time.sleep(0.1)
+        if most[0] != failover or len(pods()) != failover:
+            fail(f"21b: {most[0]} replicas seen after the failover, "
+                 f"{failover} asked (a replica double-created)")
+        over = wire_over_capacity(admin.list("nodes")[0],
+                                  [o for o in admin.list("pods")[0]
+                                   if alive(o)])
+        if over:
+            fail(f"21b: {over} nodes over capacity")
+        launches = debug_vars(port)["kernelLaunches"]
+        if dev == "cuda" and launches["scan_chunk"] < 1:
+            fail(f"21b: the daemon process launched no scan kernel: "
+                 f"{launches}")
+    finally:
+        for key, child in reversed(list(children.items())):
+            if key not in codes:
+                codes[key] = child.stop()
+    bad = {k: v for k, v in codes.items() if v not in (0, "SIGKILL")}
+    if bad:
+        fail(f"21b: processes exited non-zero on SIGTERM: {bad}")
+    print(f"phase 21b: {label}: the Python apiserver (token auth, ABAC), "
+          f"the daemon binary on {dev}, two controller-managers under "
+          f"--leader-elect (lease {'/'.join(CM_LEASE)} s), "
+          f"{WIRE_KUBELETS} kubelet processes and a proxy ready in "
+          f"{times['ready']:.3f} s; kubectl apply -f of {replicas} "
+          f"replicas Running (rollout status) {times['apply_to_running']:.3f}"
+          f" s after the apply; v2 rolled out in {times['roll_v2']:.3f} s "
+          f"and undone in {times['undo']:.3f} s (history "
+          f"{' '.join(history.split()[2:])}); scaled to {scaled} in "
+          f"{times['scale']:.3f} s; {victim}'s drain held by minAvailable "
+          f"{scaled + 1} ({held_429} evictions refused with 429 in its 1 "
+          f"s), then drained under minAvailable "
+          f"{min_available} ({evicted} evictions granted, {len(refused)} "
+          f"refused with 429 and retried; at least {min(healthy)} healthy "
+          f"replicas against the floor {floor}, the budget's status down "
+          f"to {min(counted)}) and its pods replaced in "
+          f"{times['drain']:.3f} s; "
+          f"explain named PodFitsResources and the placed pod's node; the "
+          f"leader SIGKILLed: the standby holds the lease and {failover} "
+          f"replicas Running {takeover_s:.3f} s after the kill, at most "
+          f"{most[0]} seen, 0 over capacity; the daemon's /debug/vars "
+          f"kernelLaunches {launches}; every other process exited 0 on "
+          f"SIGTERM")
+    return {"counts": launches, "times": times, "takeover_s": takeover_s}
+
+
+def phase_cm(card: str, dev: str = "cuda") -> dict:
+    """21: the controller-manager on the card, 21a then 21b."""
+    t0 = time.perf_counter()
+    with Gen2Pauses() as gc2:
+        a = phase_cm_twins(CM_NODES, CM_REPLICAS, card, dev)
+    print(f"phase 21: 21a done {time.perf_counter() - t0:.3f} s into the "
+          f"phase ({gc2.describe()})", flush=True)
+    with Gen2Pauses() as gc2:
+        b = phase_cm_wire(CM_WIRE_REPLICAS, card, dev)
+    print(f"phase 21: 21b done {time.perf_counter() - t0:.3f} s into the "
+          f"phase ({gc2.describe()})", flush=True)
+    print(f"phase 21: 21a and 21b passed in "
+          f"{time.perf_counter() - t0:.3f} s")
+    return {"paths": {"a": a["counts"], "b": b["counts"]}}
+
+
+def phase_child(flag: str, key: str, phase: str, *opts: str) -> dict:
+    """A phase in a fresh interpreter (``chip_smoke.py --<flag>``): after
+    phases 1-19 this process's host work ran many times slower than the
+    same fleet alone (PERF.md, section 6).  Its lines are echoed; its last
+    line is the phase's record.  The child is stopped on any failure."""
+    print(f"phase {phase}: the smoke's process before the child: "
+          f"{process_state()}", flush=True)
+    cmd = [sys.executable, __file__, f"--{flag}", *opts]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, text=True)
+    last = ""
+    try:
+        for line in proc.stdout:
+            print(line, end="", flush=True)
+            last = line
+        rc = proc.wait()
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        proc.stdout.close()
+    if rc != 0:
+        fail(f"{phase}: python3 chip_smoke.py --{flag} exited {rc}")
+    return json.loads(last)[key]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--nodes", type=int, default=5000)
@@ -4523,12 +5331,12 @@ def main() -> int:
     ap.add_argument("--rich-nodes", type=int, default=1000)
     ap.add_argument("--rich-pods", type=int, default=1024)
     ap.add_argument("--single-nodes", type=int, default=5000)
-    ap.add_argument("--single-pods", type=int, default=256)
+    ap.add_argument("--single-pods", type=int, default=128)
     ap.add_argument("--extender-nodes", type=int, default=5000)
     ap.add_argument("--extender-probes", type=int, default=200)
     ap.add_argument("--factory-nodes", type=int, default=5000)
-    ap.add_argument("--factory-pods", type=int, default=2048)
-    ap.add_argument("--topology-pods", type=int, default=4096)
+    ap.add_argument("--factory-pods", type=int, default=1024)
+    ap.add_argument("--topology-pods", type=int, default=2048)
     ap.add_argument("--binary-nodes", type=int, default=1000)
     ap.add_argument("--binary-pods", type=int, default=2048)
     ap.add_argument("--kernels-only", action="store_true",
@@ -4544,6 +5352,9 @@ def main() -> int:
     ap.add_argument("--fleet-replicas", type=int, default=FLEET_REPLICAS)
     ap.add_argument("--fleet-only", action="store_true",
                     help="build and run phase 20 only; prints no result "
+                         "lines")
+    ap.add_argument("--cm-only", action="store_true",
+                    help="build and run phase 21 only; prints no result "
                          "lines")
     args = ap.parse_args()
     t_start = time.perf_counter()
@@ -4564,9 +5375,10 @@ def main() -> int:
     print(f"phase 1: card {card}; torch {torch.__version__} "
           f"cuda {torch.version.cuda}")
     t0 = time.perf_counter()
-    # --fleet-only loads a library its parent smoke built (it builds one
-    # if there is none); every other run rebuilds, for ptxas's report.
-    lib, log = kernels.build(verbose=not args.fleet_only)
+    # --fleet-only and --cm-only load a library their parent smoke built
+    # (they build one if there is none); every other run rebuilds, for
+    # ptxas's report.
+    lib, log = kernels.build(verbose=not (args.fleet_only or args.cm_only))
     print(f"phase 1: built {lib.name} (one nvcc command: "
           f"{', '.join(src.name for src in kernels.SOURCES)}) in "
           f"{time.perf_counter() - t0:.3f} s")
@@ -4583,6 +5395,10 @@ def main() -> int:
     if args.fleet_only:
         # The last line: the phase's record, for a parent smoke to read.
         print(json.dumps({"fleet": phase_fleet(args, card)}))
+        return 0
+    if args.cm_only:
+        # The last line: the phase's record, for a parent smoke to read.
+        print(json.dumps({"cm": phase_cm(card)}))
         return 0
     def stamp(done: str) -> None:
         print(f"chip_smoke: {done} done at "
@@ -4621,7 +5437,12 @@ def main() -> int:
         args, card, density_p50=bench18["art"]["settings"]["one-shot"]
         ["elapsed_s_p50"])
     stamp("phase 19")
-    fleet20 = phase_fleet_child(args)
+    fleet20 = phase_child("fleet-only", "fleet", "20",
+                          "--fleet-nodes", str(args.fleet_nodes),
+                          "--fleet-replicas", str(args.fleet_replicas))
+    stamp("phase 20")
+    cm21 = phase_child("cm-only", "cm", "21")
+    stamp("phase 21")
 
     def wire_launches(kernel: str) -> dict:
         out = {f"wire_{run}": wire17[run]["counts"][kernel]
@@ -4636,6 +5457,9 @@ def main() -> int:
         # 20d's daemon process.
         out.update({f"fleet_20{sub}": counts[kernel]
                     for sub, counts in fleet20["paths"].items()})
+        # Phase 21's paths: 21a's rounds in process, 21b's daemon process.
+        out.update({f"cm_21{sub}": counts[kernel]
+                    for sub, counts in cm21["paths"].items()})
         return out
 
     kernels_line = [{

@@ -28,6 +28,7 @@ service, ``tenancy/``), ``KT_DEFRAG`` (``scheduler/defrag.py``) and
 from __future__ import annotations
 
 import gc
+import sys
 import threading
 import time
 from typing import Optional, Union
@@ -49,6 +50,46 @@ from kubernetes_tpu_torch.utils.events import EventRecorder, async_sink
 from kubernetes_tpu_torch.utils.logging import get_logger
 
 log = get_logger("factory")
+
+# While shard leases run (run() to stop()), the interpreter is set for
+# the lease thread, which holds the leases only while it gets the
+# interpreter lock in time (numbers from chip_smoke.py 19b, 30,000 pods,
+# on the H100 host):
+# * generation-2 collections are deferred: one walks every object made
+#   since the startup freeze with the lock held, 0.60-0.91 s, longer
+#   than a lease's renew deadline;
+# * the switch interval is LEASE_SWITCH_INTERVAL_S: the lease thread
+#   waits for the lock after every socket operation, and behind the
+#   drain's busy threads one lease round trip took up to 0.28 s at the
+#   default 5 ms.
+# Both are process-wide: the first holder saves them, the last one to
+# stop restores them.
+LEASE_SWITCH_INTERVAL_S = 0.001
+_LEASE_MU = threading.Lock()
+_LEASE_HOLDERS: list = [0, None]   # holders, the settings to restore
+# An idle HA daemon still collects its cyclic garbage, at most this
+# often (queue empty at two sweeps in a row).
+GC_IDLE_PERIOD_S = 30.0
+
+
+def enter_lease_mode() -> None:
+    with _LEASE_MU:
+        if _LEASE_HOLDERS[0] == 0:
+            saved = (gc.get_threshold(), sys.getswitchinterval())
+            _LEASE_HOLDERS[1] = saved
+            t0, t1, _t2 = saved[0]
+            gc.set_threshold(t0, t1, 2 ** 31 - 1)
+            sys.setswitchinterval(LEASE_SWITCH_INTERVAL_S)
+        _LEASE_HOLDERS[0] += 1
+
+
+def leave_lease_mode() -> None:
+    with _LEASE_MU:
+        _LEASE_HOLDERS[0] -= 1
+        if _LEASE_HOLDERS[0] == 0:
+            thresholds, interval = _LEASE_HOLDERS[1]
+            gc.set_threshold(*thresholds)
+            sys.setswitchinterval(interval)
 
 
 class MemStoreBinder:
@@ -211,9 +252,13 @@ class ConfigFactory:
         if ha_shards is None:
             ha_shards = knobs.get_int("KT_HA_SHARDS")
         self.shards = None
+        self._lease_mode = False
         # Bounded log of shard-takeover reconciles (served on
         # /debug/vars next to lastRecovery).
         self.shard_recoveries: list[dict] = []
+        # shard -> (the acquisition stamp its last takeover reconcile
+        # covered, that reconcile's report).
+        self._shards_reconciled: dict[int, tuple] = {}
         # Multi-tenant solver service (KT_TENANTS, tenancy/): this
         # daemon's engine becomes a shared service — the pipeline packs
         # cross-tenant batches under weighted fairness, attributes
@@ -426,17 +471,41 @@ class ConfigFactory:
         """Takeover reconcile BEFORE draining the shard: relist, adopt
         the dead incarnation's landed binds, requeue its orphans (see
         recovery.reconcile_shard for the safety argument).  Runs on the
-        shard manager's callback thread.  Retried on failure — a chaos
-        cut (or a flaky apiserver) killing THIS relist would otherwise
-        strand the shard's backlog until the periodic sweep; the sweep
-        is the backstop, not the plan."""
+        shard manager's callback thread.  Every shard acquired and not
+        yet reconciled rides the same relist, each with its own
+        acquisition cutoff: a dead peer's k shards cost one decode of
+        the pending pods, not k, each with the interpreter lock held
+        (19b on the H100 host: a survivor that took 4 shards spent the
+        takeover window in them).  Retried on failure — a chaos cut (or
+        a flaky apiserver) killing THIS relist would otherwise strand
+        the shard's backlog until the periodic sweep; the sweep is the
+        backstop, not the plan."""
         from kubernetes_tpu_torch.scheduler import recovery
+        from kubernetes_tpu_torch.scheduler.shards import shard_of
+        done = self._shards_reconciled
+        stamps = {s: self.shards.acquired_at(s)
+                  for s in self.shards.owned() | {shard}}
+        due = {s: at for s, at in stamps.items()
+               if at is not None and done.get(s, (None,))[0] != at}
+        if not due:
+            # An earlier callback's relist covered this acquisition.
+            report = done.get(shard, (None, None))[1]
+            if report is not None:
+                report["handoff"] = handoff
+            return
+        n = self.shards.n_shards
         last_err = None
         for attempt in range(3):
             try:
-                report = recovery.reconcile_shard(
-                    self.daemon, self.store, shard,
-                    self._shard_ns_test(shard),
+                # Listed after every due shard became ours.
+                buckets: dict[int, list] = {s: [] for s in due}
+                for obj in recovery.list_pending(self.store):
+                    s = shard_of((obj.get("metadata") or {}).get(
+                        "namespace") or "", n)
+                    if s in buckets:
+                        buckets[s].append(obj)
+                reports = {s: recovery.reconcile_shard(
+                    self.daemon, self.store, s, self._shard_ns_test(s),
                     scheduler_name=self.daemon.config.scheduler_name,
                     # Assumes minted since we won this lease are the
                     # live drain loop (the queue gate opened with the
@@ -444,19 +513,21 @@ class ConfigFactory:
                     # pre-acquisition leftovers are stale.  The cutoff
                     # and the clock it is compared under must share a
                     # base, so both come from the shard manager.
-                    assumed_before=self.shards.acquired_at(shard),
-                    now=self.shards.now)
+                    assumed_before=at, now=self.shards.now,
+                    listed=buckets[s]) for s, at in sorted(due.items())}
                 break
             except Exception as err:  # noqa: BLE001 — retry the relist
                 last_err = err
                 time.sleep(0.2 * (attempt + 1))
         else:
-            log.warning("shard %d takeover reconcile failed after "
+            log.warning("shard(s) %s takeover reconcile failed after "
                         "retries (%s); the periodic ownership sweep "
-                        "will converge it", shard, last_err)
+                        "will converge it", sorted(due), last_err)
             return
-        report["handoff"] = handoff
-        self.shard_recoveries.append(report)
+        for s, report in reports.items():
+            report["handoff"] = handoff if s == shard else None
+            done[s] = (due[s], report)
+            self.shard_recoveries.append(report)
         del self.shard_recoveries[:-32]
 
     def _shard_sweep_loop(self, period: float,
@@ -616,11 +687,23 @@ class ConfigFactory:
         gc.freeze()
         log.info("froze the startup heap (%d objects) in %.3f s",
                  gc.get_freeze_count(), time.perf_counter() - t_gc)
+        if self.shards is not None:
+            enter_lease_mode()
+            self._lease_mode = True
         self._threads.append(self.daemon.run(batched=self.batched))
 
         def ttl_sweep():  # cleanupAssumedPods (cache.go:309-330)
+            idle, collected = False, time.monotonic()
             while not self._stop.wait(CLEANUP_PERIOD):
                 self.algorithm.cache.cleanup_expired()
+                if not self._lease_mode:
+                    continue
+                # The deferred generation-2 collection, once idle.
+                was_idle, idle = idle, len(self.daemon.queue) == 0
+                if was_idle and idle and \
+                        time.monotonic() - collected >= GC_IDLE_PERIOD_S:
+                    gc.collect()
+                    collected = time.monotonic()
         self._threads.append(threadreg.spawn(ttl_sweep,
                                              name="assume-ttl-sweep"))
         return self
@@ -639,7 +722,7 @@ class ConfigFactory:
         if self.defrag is not None:
             self.defrag.stop()
         self.daemon.stop()
-        gc.unfreeze()
+        self._restore_gc()
         sink = getattr(self.daemon.config.recorder, "_sink", None)
         close = getattr(sink, "close", None)
         if close is not None:
@@ -667,4 +750,10 @@ class ConfigFactory:
             # incarnation's reconcile requeues or clears them.
             self.defrag.stop()
         self.daemon.abandon()
+        self._restore_gc()
+
+    def _restore_gc(self) -> None:
         gc.unfreeze()
+        if self._lease_mode:
+            self._lease_mode = False
+            leave_lease_mode()

@@ -175,11 +175,23 @@ def reconcile(daemon, store, scheduler_name: Optional[str] = None) -> dict:
     return report
 
 
+def list_pending(store) -> list[dict]:
+    """The relist :func:`reconcile_shard` works from: the pending pods
+    (``spec.nodeName=`` server-side where the store supports field
+    selectors, else every pod)."""
+    try:
+        items, _rv = store.list("pods", field_selector="spec.nodeName=")
+    except TypeError:  # raw MemStore: no field selectors; filter here
+        items, _rv = store.list("pods")
+    return items
+
+
 def reconcile_shard(daemon, store, shard: int, owns,
                     scheduler_name: Optional[str] = None,
                     min_assume_age_s: float = 0.0,
                     assumed_before: Optional[float] = None,
-                    now: Callable[[], float] = time.monotonic) -> dict:
+                    now: Callable[[], float] = time.monotonic,
+                    listed: Optional[list] = None) -> dict:
     """Shard-takeover reconciliation (active-active HA,
     scheduler/shards.py): the survivor that just won shard ``shard``'s
     orphaned lease re-derives that shard's backlog from one apiserver
@@ -236,13 +248,14 @@ def reconcile_shard(daemon, store, shard: int, owns,
     until the cache TTL; the sweep passes a threshold above any
     healthy bind round-trip (KT_HA_STALE_ASSUME_S, default 3 s),
     forgetting only assumes older than that.  The bind CAS keeps a
-    still-racing duplicate safe under either test."""
+    still-racing duplicate safe under either test.
+
+    ``listed`` is a :func:`list_pending` the caller made after this
+    shard became ours (several takeovers then share one relist); None
+    lists here."""
     t0 = time.perf_counter()
     cache = daemon.config.algorithm.cache
-    try:
-        items, _rv = store.list("pods", field_selector="spec.nodeName=")
-    except TypeError:  # raw MemStore: no field selectors; filter here
-        items, _rv = store.list("pods")
+    items = list_pending(store) if listed is None else listed
     report = {"shard": shard, "readopted": 0, "requeued": 0,
               "expired": 0, "confirmed": 0, "pods_in_shard": 0}
     for obj in items:

@@ -539,3 +539,59 @@ def test_factory_freezes_its_startup_heap_until_stop():
     finally:
         f.stop()
     assert gc.get_freeze_count() == 0
+
+
+def test_ha_factories_hold_lease_mode_until_the_last_stops():
+    """With shard leases ``run()`` stops the automatic generation-2
+    collections and shortens the switch interval (the lease thread must
+    get the interpreter lock within a renew deadline); both come back
+    when the last HA factory stops, and a factory without shards leaves
+    them as they were."""
+    import gc
+    import sys
+
+    from kubernetes_tpu_torch.apiserver.memstore import MemStore
+    from kubernetes_tpu_torch.scheduler import factory as fac
+    before = (gc.get_threshold(), sys.getswitchinterval())
+    store = MemStore()
+    plain = fac.ConfigFactory(MemStore(), device="cpu")
+    ha = [fac.ConfigFactory(store, device="cpu", ha_shards=2,
+                            incarnation=f"inc-{i}") for i in range(2)]
+    live = []
+    try:
+        live.append(plain.run())
+        assert (gc.get_threshold(), sys.getswitchinterval()) == before
+        for f in ha:
+            live.append(f.run())
+        held = (gc.get_threshold(), sys.getswitchinterval())
+        assert held[0][:2] == before[0][:2] and held[0][2] >= 2 ** 31 - 1
+        assert held[1] == fac.LEASE_SWITCH_INTERVAL_S != before[1]
+        live.remove(ha[0])
+        ha[0].abandon()
+        assert (gc.get_threshold(), sys.getswitchinterval()) == held
+    finally:
+        for f in live:
+            f.stop()
+    assert (gc.get_threshold(), sys.getswitchinterval()) == before
+
+
+def test_an_idle_ha_factory_still_collects_its_cycles(monkeypatch):
+    """The deferred generation-2 collection runs once the queue has been
+    empty at two assume-TTL sweeps in a row (here with no wait between
+    collections)."""
+    from kubernetes_tpu_torch.apiserver.memstore import MemStore
+    from kubernetes_tpu_torch.scheduler import factory as fac
+    calls = []
+    monkeypatch.setattr(fac, "GC_IDLE_PERIOD_S", 0.0)
+    f = fac.ConfigFactory(MemStore(), device="cpu", ha_shards=1,
+                          incarnation="idle")
+    f.run()
+    try:
+        monkeypatch.setattr(fac.gc, "collect",
+                            lambda *args: calls.append(args) or 0)
+        deadline = time.monotonic() + 10
+        while not calls:
+            assert time.monotonic() < deadline, "no idle collection"
+            time.sleep(0.1)
+    finally:
+        f.stop()

@@ -337,6 +337,72 @@ def test_takeover_reconcile_report_equals_the_reference():
     assert ref[0]["expired"] and ref[0]["requeued"]
 
 
+def _takeover_rig(side: str, d, store) -> list[str]:
+    """Pending pods in 5 namespaces on ``store``, some assumed on ``d``'s
+    cache, a few bound; returns the keys."""
+    cache = d.config.algorithm.cache
+    cache.add_node(_node(side, "n1"))
+    for i in range(12):
+        ns = f"ns-{i % 5}"
+        store.create("pods", _pod_json(f"pend-{i}", ns))
+        if i % 3 == 0:
+            cache.assume_pod(_pod(side, f"pend-{i}", ns), "n1")
+    for i in range(4):
+        store.create("pods", _pod_json(f"bound-{i}", "ns-1"))
+        store.bind("ns-1", f"bound-{i}", "n1")
+    return [f"ns-{i % 5}/pend-{i}" for i in range(12)] + \
+        [f"ns-1/bound-{i}" for i in range(4)]
+
+
+def test_takeovers_share_one_relist_and_report_as_the_reference(
+        monkeypatch):
+    """Three shards acquired together: the port's factory reconciles all
+    of them from one relist, on the first callback, with the reports,
+    queue and assumes of the reference's per-shard reconciles; the later
+    callbacks only set their handoff flag; a re-acquired shard relists
+    again."""
+    from kubernetes_tpu_torch.scheduler.factory import ConfigFactory
+    cut = time.monotonic() + 1.0
+    d = _daemon("ref")
+    store = RStore()
+    try:
+        keys = _takeover_rig("ref", d, store)
+        ref = [r_recovery.reconcile_shard(
+            d, store, s, lambda ns, s=s: r_shards.shard_of(ns, 4) == s,
+            assumed_before=cut) for s in range(3)]
+        ref_state = ([k for k in keys if k in d.queue], sorted(
+            k for k, _, a in d.config.algorithm.cache.tracked_pods() if a))
+    finally:
+        d.stop()
+    store = TStore()
+    f = ConfigFactory(store, device="cpu", ha_shards=4, incarnation="t")
+    lists = []
+    real = t_recovery.list_pending
+    monkeypatch.setattr(t_recovery, "list_pending",
+                        lambda st: lists.append(1) or real(st))
+    try:
+        keys = _takeover_rig("port", f.daemon, store)
+        f.shards._owned = {0, 1, 2}
+        f.shards._acquired_at = {0: cut, 1: cut, 2: cut}
+        for s, handoff in ((0, True), (1, False), (2, True)):
+            f._on_shard_acquired(s, handoff)
+        port = [dict(r) for r in f.shard_recoveries]
+        cache = f.daemon.config.algorithm.cache
+        port_state = ([k for k in keys if k in f.daemon.queue], sorted(
+            k for k, _, a in cache.tracked_pods() if a))
+        assert len(lists) == 1
+        assert [r.pop("handoff") for r in port] == [True, False, True]
+        for r in port + ref:
+            r.pop("duration_s")
+        assert port == ref and port_state == ref_state
+        assert sum(r["requeued"] for r in ref) > 0
+        f.shards._acquired_at[1] = cut + 1.0
+        f._on_shard_acquired(1, True)
+        assert len(lists) == 2 and f.shard_recoveries[-1]["shard"] == 1
+    finally:
+        f.daemon.stop()
+
+
 # -- two port incarnations over HTTP -----------------------------------------
 
 
@@ -423,3 +489,24 @@ def test_two_incarnations_over_http_bind_every_pod_once(monkeypatch):
                 pass
         watcher.stop()
         srv.shutdown()
+
+
+def test_ha_takeover_summary_reads_the_window_after_the_kill():
+    """``perf/ha_takeover.summarize``: the longest collection, lease round
+    trip and tick of each incarnation from 0.2 s before the kill to a
+    second after it, and the relists with their start after the kill."""
+    from kubernetes_tpu_torch.perf.ha_takeover import SITE, summarize
+    compile(SITE, "sitecustomize.py", "exec")
+    recs = {"inc-1": [
+        {"ev": "gc", "gen": 2, "d": 0.9, "t": 9.0},
+        {"ev": "gc", "gen": 0, "d": 0.02, "t": 10.1},
+        {"ev": "try", "s": 3, "d": 0.2, "t": 10.5},
+        {"ev": "tick", "start": 10.3, "d": 0.3, "t": 10.6},
+        {"ev": "relist", "start": 10.4, "n": 1956, "d": 0.1, "t": 10.5},
+        {"ev": "try", "s": 3, "d": 0.5, "t": 11.5}],
+        "inc-2": []}
+    assert summarize(recs, 10.0) == {
+        "inc-1": {"gc_max_s": 0.02, "round_trip_max_s": 0.2,
+                  "tick_max_s": 0.3, "relists": [(0.4, 1956, 0.1)]},
+        "inc-2": {"gc_max_s": 0.0, "round_trip_max_s": 0.0,
+                  "tick_max_s": 0.0, "relists": []}}

@@ -83,6 +83,15 @@ def test_port_sources_import_no_jax_and_no_reference_package():
     assert {"controller/node.py", "controller/endpoints.py",
             "kubelet/kubelet.py", "kubelet/__main__.py", "proxy/proxy.py",
             "proxy/__main__.py"} <= names
+    # The controller-manager and kubectl.
+    assert {"utils/timeutil.py", "controller/disruption.py",
+            "controller/deployment.py", "controller/daemonset.py",
+            "controller/job.py", "controller/podgc.py",
+            "controller/garbagecollector.py", "controller/namespace.py",
+            "controller/serviceaccounts.py", "controller/resourcequota.py",
+            "controller/podautoscaler.py", "controller/scheduledjob.py",
+            "controller/petset.py", "controller/__main__.py",
+            "kubectl/__init__.py", "kubectl/__main__.py"} <= names
     bad = {str(f.relative_to(REPO)): [m for m in _imports(f)
                                       if _forbidden(m)]
            for f in files}
@@ -296,54 +305,106 @@ def test_the_apiserver_binary_loads_no_jax_module():
     assert [m for m in mods if m == "torch" or m.startswith("torch.")] == []
 
 
-@pytest.mark.parametrize("binary", ["kubelet", "proxy"])
+# Each binary's line on standard error once it runs, and a module it
+# must have loaded by then.
+_BINARIES = {
+    "kubelet": ("running", "kubernetes_tpu_torch.kubelet.kubelet"),
+    "proxy": ("running", "kubernetes_tpu_torch.proxy.proxy"),
+    "controller": ("controller-manager running (",
+                   "kubernetes_tpu_torch.controller.scheduledjob"),
+}
+
+
+@pytest.mark.parametrize("binary", ["kubelet", "proxy", "controller",
+                                    "kubectl"])
 def test_the_hollow_binaries_load_no_jax_module(binary):
-    """``python -m kubernetes_tpu_torch.kubelet`` (registering its Node)
-    and ``python -m kubernetes_tpu_torch.proxy`` run against the port's
-    apiserver, exit 0 on SIGTERM, and load no ``jax``, no
-    ``kubernetes_tpu`` and no ``torch`` module (``-X importtime``)."""
-    import signal
-    import urllib.request
-    from torch_wire import start_python_apiserver, stop, wait_until
+    """``python -m kubernetes_tpu_torch.kubelet`` (registering its Node),
+    ``python -m kubernetes_tpu_torch.proxy``, ``python -m
+    kubernetes_tpu_torch.controller --api-server URL`` (its loops
+    running) and ``python -m kubernetes_tpu_torch.kubectl --server URL
+    get nodes`` run against the port's apiserver, exit 0 (on SIGTERM for
+    the daemons), and load no ``jax``, no ``kubernetes_tpu`` and no
+    ``torch`` module (``-X importtime``)."""
+    from torch_wire import start_python_apiserver, stop
     env = dict(os.environ, PYTHONPATH=str(REPO))
     api, base = start_python_apiserver()
     try:
-        extra = ["--node-name", "iso-0"] if binary == "kubelet" else []
-        proc = subprocess.Popen(
-            [sys.executable, "-X", "importtime", "-m",
-             f"kubernetes_tpu_torch.{binary}", "--api-server", base,
-             *extra], cwd=REPO, env=env, stdout=subprocess.DEVNULL,
-            stderr=subprocess.PIPE, text=True)
-        try:
-            lines = []
-            while True:
-                line = proc.stderr.readline()
-                assert line, "".join(lines[-20:])
-                lines.append(line)
-                if line.rstrip().endswith("running"):
-                    break
-            if binary == "kubelet":
-                def registered():
-                    try:
-                        with urllib.request.urlopen(
-                                f"{base}/api/v1/nodes/iso-0",
-                                timeout=30) as resp:
-                            return resp.status == 200
-                    except OSError:
-                        return False
-                wait_until(registered, 60, "the kubelet's Node")
-            proc.send_signal(signal.SIGTERM)
-            lines += proc.stderr.read().splitlines(keepends=True)
-            assert proc.wait(timeout=60) == 0
-        finally:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-            proc.stderr.close()
+        if binary == "kubectl":
+            proc = subprocess.run(
+                [sys.executable, "-X", "importtime", "-m",
+                 "kubernetes_tpu_torch.kubectl", "--server", base, "get",
+                 "nodes"], cwd=REPO, env=env, capture_output=True,
+                text=True, timeout=120)
+            assert proc.returncode == 0, proc.stderr[-2000:]
+            assert proc.stdout.split()[:2] == ["NAME", "STATUS"]
+            lines = proc.stderr.splitlines()
+            loaded = "kubernetes_tpu_torch.client.http"
+        else:
+            ready, loaded = _BINARIES[binary]
+            extra = {"kubelet": ["--node-name", "iso-0"],
+                     "controller": ["--port", "-1"]}.get(binary, [])
+            lines = _run_daemon(binary, base, extra, ready, env)
     finally:
         stop(api)
     mods = [ln.rsplit("|", 1)[1].strip() for ln in lines
             if ln.startswith("import time:") and "|" in ln]
-    assert f"kubernetes_tpu_torch.{binary}.{binary}" in mods
+    assert loaded in mods
     assert [m for m in mods if _forbidden(m)] == []
     assert [m for m in mods if m == "torch" or m.startswith("torch.")] == []
+
+
+def _run_daemon(binary: str, base: str, extra: list, ready: str,
+                env: dict) -> list:
+    """Run ``python -m kubernetes_tpu_torch.<binary>`` until it logs
+    ``ready`` (and, for the kubelet and the controller-manager, what it
+    writes exists), then SIGTERM it: it must exit 0.  Returns its
+    standard error's lines."""
+    import signal
+    import time
+    import urllib.request
+    from torch_wire import wait_until
+    proc = subprocess.Popen(
+        [sys.executable, "-X", "importtime", "-m",
+         f"kubernetes_tpu_torch.{binary}", "--api-server", base, *extra],
+        cwd=REPO, env=env, stdout=subprocess.DEVNULL,
+        stderr=subprocess.PIPE, text=True)
+    try:
+        lines = []
+        while True:
+            line = proc.stderr.readline()
+            assert line, "".join(lines[-20:])
+            lines.append(line)
+            if line.rstrip().endswith("running") if ready == "running" \
+                    else ready in line:
+                break
+        # What the running binary writes: the kubelet its Node, the
+        # controller-manager (its SIGTERM handler installed just after
+        # its "running" line) the default ServiceAccount, a sync later.
+        written = {"kubelet": "/api/v1/nodes/iso-0",
+                   "controller": "/api/v1/namespaces/default/"
+                                 "serviceaccounts/default"}.get(binary)
+        if written:
+            def registered():
+                try:
+                    with urllib.request.urlopen(f"{base}{written}",
+                                                timeout=30) as resp:
+                        return resp.status == 200
+                except OSError:
+                    return False
+            wait_until(registered, 60, f"{written} written by the "
+                                       f"{binary}")
+        # Each binary logs its running line, then installs its SIGTERM
+        # handler and parks its main thread in Event.wait() (both
+        # packages).  A SIGTERM in between kills it (-15), or lands while
+        # the main thread holds the Event's lock, where the handler's
+        # Event.set() blocks for good: let the main thread park first.
+        time.sleep(1.0)
+        proc.send_signal(signal.SIGTERM)
+        lines += proc.communicate(timeout=60)[1].splitlines(keepends=True)
+        assert proc.returncode == 0
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        proc.stderr.close()
+    return lines

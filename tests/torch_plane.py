@@ -1,5 +1,6 @@
 """Shared rigs for the control-plane parity tests of the PyTorch port
-(``tests/test_torch_{replication,kubelet,node_lifecycle,control_plane}.py``).
+(``tests/test_torch_{replication,kubelet,node_lifecycle,control_plane,
+controllers,deployment}.py``).
 
 Each test builds the same objects on two twin ``MemStore``s, one of each
 package, and drives the JAX package's class on one and the port's on the
@@ -10,10 +11,12 @@ sequence."""
 
 from __future__ import annotations
 
+import importlib
 import time
 from types import SimpleNamespace
 
 SIDES = ("ref", "port")
+PACKAGES = {"ref": "kubernetes_tpu", "port": "kubernetes_tpu_torch"}
 
 # The store's creation stamp: a wall-clock field (the kubelet tests add
 # the heartbeat stamps).
@@ -51,6 +54,11 @@ def mods(side: str) -> SimpleNamespace:
         NodeLifecycleController=NodeLifecycleController,
         HollowKubelet=HollowKubelet, HollowProxy=HollowProxy,
         factory=lambda store: ConfigFactory(store, **factory_kw))
+
+
+def module(side: str, path: str):
+    """``path`` (e.g. ``"controller.job"``) of the side's package."""
+    return importlib.import_module(f"{PACKAGES[side]}.{path}")
 
 
 class Pump:
