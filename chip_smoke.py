@@ -42,7 +42,7 @@ fails the run with a non-zero exit:
    feasible and infeasible; then timed per call at N = 5,000, P = 1
    (CUDA-graph replay);
 7. single pod at full width: ``schedule(pod)`` then ``assume_pod`` for
-   the 128 pods of a 5,000-node ``mixed`` rig plus one pod that fits
+   the 64 pods of a 5,000-node ``mixed`` rig plus one pod that fits
    nowhere, on ``cuda`` and on ``cpu``: placements, counter and the
    FitError map identical; microseconds per decision on the card, the
    kernel's launches, a split of a decision into ``_compile``,
@@ -63,7 +63,7 @@ fails the run with a non-zero exit:
    metrics 0 crashed pods, 0 device faults and 0 refused binds; wall,
    pods/s, assume/bind time and the kernels' launches of each run;
 10. factory: ``ConfigFactory`` over a ``MemStore`` holding 5,000 nodes
-   and 1,024 pods before ``run()``, on cuda and on cpu, every pod's
+   and 512 pods before ``run()``, on cuda and on cpu, every pod's
    nodeName identical, with the time from ``run()`` to the last bind and
    ``last_recovery``; then ``python -m kubernetes_tpu_torch.scheduler
    --device cuda --port 0`` answers /healthz and /configz and exits 0 on
@@ -78,7 +78,7 @@ fails the run with a non-zero exit:
    daemon drain of 4,096 pods: every pod binds as in the fault-free run,
    the fault counters match the injection, and no mode reads ``host``.
 
-13. topology spread: (a) a ``mixed`` drain of 5,000 nodes x 2,048 pods,
+13. topology spread: (a) a ``mixed`` drain of 5,000 nodes x 1,024 pods,
    40% of them carrying a zone DoNotSchedule term (half of those also a
    hostname ScheduleAnyway term), on cuda and cpu, identical; (b) the
    north star with the same annotations: every choice inside its
@@ -106,7 +106,7 @@ fails the run with a non-zero exit:
    maximum, no two pods of one required anti-affinity group on one
    host: 0 of each allowed); a second drain split into ``_compile``,
    the hoist, the term lists, the scan and the readback; the term axes;
-   and about 100 sampled decisions against the oracle (``perf/parity``,
+   and about 50 sampled decisions against the oracle (``perf/parity``,
    at least 99% agreement);
 17. the daemon over the wire: (a) 5,000 ``mixed`` nodes and 4,096 pods
    created in ``python -m kubernetes_tpu_torch.apiserver`` before the
@@ -130,7 +130,8 @@ fails the run with a non-zero exit:
    ``main`` called in process) at the north star, 5,000 ``mixed`` nodes
    x 30,000 pods, with only the repeats cut: 2 density runs and 1 wire
    run (the native apiserver) per setting (``stream``, ``one-shot``), its
-   ``fleet`` phase off (``BENCH_FLEET=0``: phase 20b runs the fleet),
+   ``fleet`` and ``soak`` phases off (``BENCH_FLEET=0``,
+   ``BENCH_SOAK=0``: phases 20b and 22 run them),
    the serving rows with a 5 s trickle, joint and workloads at the
    reference's sizes.  Every density and wire run binds all 30,000
    pods, 0 zero-bound and 0 failed wire runs, 0 kernel builds after a
@@ -151,7 +152,7 @@ fails the run with a non-zero exit:
    weighted 2:1:1) through a ``KT_TENANTS`` daemon over a ``MemStore``
    (with ``KT_DEFRAG`` and ``KT_VERIFY_PERIOD=0.5``, kept for c and d):
    all bound, 0 over capacity, the shares of the first packed solves
-   within 10% of the weights; a 5,000 x 2,048 tenancy daemon on cuda and
+   within 10% of the weights; a 5,000 x 512 tenancy daemon on cuda and
    cpu, every placement identical; (c) biased churn (the smallest pod
    of every node deleted, 8 pods 100m larger than the freest node's
    free cpu, that node's pods under a PDB with no headroom), then defrag
@@ -230,17 +231,37 @@ fails the run with a non-zero exit:
    the standby carries out with no replica created twice; the daemon's
    ``/debug/vars`` counting its scan launches; every process stopped
    (also on failure).
+22. the churn soak, in a fresh interpreter: ``perf/soak.collect(device=
+   "cuda")`` with its HA wave off (``BENCH_SOAK_HA=0``: 19b runs the
+   reference soak's HA wave): (a) ``run_soak`` at the reference's
+   defaults with its duration floor cut from 60 s to 20 s — 2,000 nodes,
+   4,000 seed pods, an 8,000-pod storm past a 3,000-pod watermark under
+   an OOM every 6th solve, 4 rolling waves of 1,000, 40 nodes drained,
+   deleted and re-added with twice the cpu, a 3,000-pod burst with the
+   scheduler killed mid-drain and restarted, one device loss (the
+   breaker opens, the wave's pods requeue until a probe closes it), over
+   HTTP through the chaos proxy (a 409 every 7th bind, every 3rd pods
+   watch cut, every 5th heartbeat dropped) with the verifier every 2 s;
+   (b) the capacity, tenancy poison, apiserver-kill (a ``python -m
+   kubernetes_tpu_torch.apiserver --storage-dir`` SIGKILLed
+   mid-avalanche), overload and defrag waves at their defaults.  Every
+   bar of ``soak.violations`` (0 invariant violations, double binds,
+   stranded pods, orphaned assumes, acknowledged writes lost, lock
+   inversions; 100% restart parity; the breaker's full arc; the overload
+   and defrag bars), ``scan_chunk`` launched in every wave, every
+   process stopped (also on failure).
 
 Phase 2b includes the f32 route of the joint repair and topology spread:
 a non-integral score bias and an extra mask with all-false rows.  It
 prints one ``{"kernels": [...]}`` line (with each kernel's launches on
 its phase's path, in the two daemon runs of phase 9 and on the paths of
-phases 13-21; ``scan_chunk``'s carries phase 20a's fleet chunk), then the
+phases 13-22; ``scan_chunk``'s carries phase 20a's fleet chunk), then the
 card line, and last ``{"ok": true, "device": {...}}``.  ``--bench-only``
 runs phases 1 and 18, ``--slice-only`` phases 1 and 19 (neither prints
-the result lines), ``--fleet-only`` phases 1 and 20 and ``--cm-only``
-phases 1 and 21, each printing the phase's record as its last line: the
-whole smoke runs phases 20 and 21 so, each in a fresh interpreter.
+the result lines), ``--fleet-only`` phases 1 and 20, ``--cm-only``
+phases 1 and 21 and ``--soak-only`` phases 1 and 22, each printing the
+phase's record as its last line: the whole smoke runs phases 20, 21 and
+22 so, each in a fresh interpreter, 21 and 22 at once.
 """
 
 from __future__ import annotations
@@ -2120,9 +2141,9 @@ def rich_safety(sched, pods: list, out: list) -> dict:
     }
 
 
-# Phase 16's oracle sample: 100 decisions (200 took 170 s of the smoke's
-# 1,200 s to replay; cut in depth to make room for phase 20).
-RICH_SAMPLES = 100
+# Phase 16's oracle sample: 50 decisions (200 took 170 s of the smoke's
+# 1,200 s to replay, 100 took 28.7 s; cut in depth for phases 20-22).
+RICH_SAMPLES = 50
 
 
 def phase_rich(nodes: int, pods: int, chunk: int, card: str) -> dict:
@@ -2825,9 +2846,9 @@ def phase_bench(nodes: int, pods: int, card: str,
            "BENCH_PROFILE": "mixed", "BENCH_DENSITY_RUNS": "2",
            "BENCH_WIRE": "1", "BENCH_WIRE_RUNS": "1", "BENCH_JOINT": "1",
            "BENCH_WORKLOADS": "1", "BENCH_SERVING": "1",
-           # Phase 20b runs fleet_metrics at the same size: cut here so
-           # the fleet does not run twice.
-           "BENCH_FLEET": "0"}
+           # Phase 20b runs fleet_metrics at the same size and phase 22
+           # the soak: cut here so neither runs twice.
+           "BENCH_FLEET": "0", "BENCH_SOAK": "0"}
     zero_counts()
     t0 = time.perf_counter()
     art = run_bench(env, ["--device", dev, "--out", out,
@@ -3814,9 +3835,9 @@ def phase_verifier(ctx: dict, card: str, dev: str = "cuda") -> dict:
     return {"launches": counts, "readback_us": readback_us}
 
 
-# 19a's cuda-against-cpu tenancy rig: 1,024 pods (at 4,096 its cpu side
-# took 29-43 s, at 2,048 28 s), cut in depth for phases 20 and 21.
-TENANCY_PARITY_PODS = 1024
+# 19a's cuda-against-cpu tenancy rig: 512 pods (at 4,096 its cpu side
+# took 29-43 s, at 1,024 17.3-17.6 s), cut in depth for phases 20-22.
+TENANCY_PARITY_PODS = 512
 
 
 def phase_slice(args, card: str, dev: str = "cuda",
@@ -4295,7 +4316,8 @@ def phase_fleet_death(ctx: dict, nodes: int, replicas: int, card: str,
     n_dead = max(1, nodes * FLEET_DEAD // FLEET_NODES)
     victims = ctx["kubelets"][::nodes // n_dead][:n_dead]
     dead = frozenset(k.node.name for k in victims)
-    before = {o["metadata"]["name"]: o["spec"]["nodeName"]
+    # A replica replaced since the Running check is pending here.
+    before = {o["metadata"]["name"]: o["spec"].get("nodeName")
               for o in fleet_pods(store.list("pods")[0])}
     on_dead = {p for p, nd in before.items() if nd in dead}
     zero_counts()
@@ -5297,29 +5319,147 @@ def phase_cm(card: str, dev: str = "cuda") -> dict:
     return {"paths": {"a": a["counts"], "b": b["counts"]}}
 
 
-def phase_child(flag: str, key: str, phase: str, *opts: str) -> dict:
-    """A phase in a fresh interpreter (``chip_smoke.py --<flag>``): after
-    phases 1-19 this process's host work ran many times slower than the
-    same fleet alone (PERF.md, section 6).  Its lines are echoed; its last
-    line is the phase's record.  The child is stopped on any failure."""
-    print(f"phase {phase}: the smoke's process before the child: "
-          f"{process_state()}", flush=True)
-    cmd = [sys.executable, __file__, f"--{flag}", *opts]
-    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, text=True)
-    last = ""
+SOAK_DURATION_S = 20.0  # perf/soak.run_soak's duration floor, cut from 60
+SOAK_OFF = {"BENCH_SOAK_HA": "0"}  # 19b runs the reference soak's HA wave
+
+
+def phase_soak(card: str, dev: str = "cuda", **soak_kw) -> dict:
+    """22: the churn soak on the card, ``perf/soak.collect`` with the HA
+    wave off: (a) ``run_soak`` at the reference's defaults but for its
+    duration floor (2,000 nodes, 4,000 seed pods, an 8,000-pod storm
+    past a 3,000 watermark, 4 rolling waves of 1,000, 40 drained nodes,
+    a 3,000-pod kill burst, the mid-drain restart, device chaos with an
+    OOM cadence and one device loss, bind 409s, watch cuts and heartbeat
+    drops through the chaos proxy); (b) the capacity, tenancy poison,
+    apiserver-kill, overload and defrag waves at their defaults.  Every
+    bar of ``soak.violations`` holds, and on the card ``scan_chunk``
+    launched in every wave.  ``soak_kw`` shrinks 22a for a rehearsal on
+    the CPU (``dev="cpu"``)."""
+    import os
+    from kubernetes_tpu_torch.perf import soak
+
+    saved = {k: os.environ.get(k) for k in SOAK_OFF}
+    os.environ.update(SOAK_OFF)
+    kw = dict(duration_s=SOAK_DURATION_S, quiet=False)
+    kw.update(soak_kw)
+    zero_counts()
+    t0 = time.perf_counter()
     try:
-        for line in proc.stdout:
-            print(line, end="", flush=True)
-            last = line
-        rc = proc.wait()
+        with Gen2Pauses() as gc2:
+            rec = soak.collect(device=dev, **kw)
     finally:
-        if proc.poll() is None:
-            proc.kill()
-            proc.wait()
-        proc.stdout.close()
-    if rc != 0:
-        fail(f"{phase}: python3 chip_smoke.py --{flag} exited {rc}")
-    return json.loads(last)[key]
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    secs = time.perf_counter() - t0
+    counts = kernel_counts()
+    out_dir = os.path.join("build", "soak")
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, f"SOAK_{rec['backend']}.json")
+    with open(path, "w") as f:
+        json.dump(rec, f, indent=1)
+    waves = rec["waves"]
+    print(f"phase 22: {secs:.3f} s ({gc2.describe()}), record {path}; "
+          f"waves " + ", ".join(f"{name} {w['seconds']:.3f} s"
+                                for name, w in waves.items()))
+    restart = rec.get("restart") or {}
+    print(f"phase 22: 22a settle {rec['settle_s']} s, churn window "
+          f"{rec['churn_window_s']} s at {rec['steady_state_pods_per_s']} "
+          f"pods/s, {rec['scale']['pods_scheduled_total']} binds of "
+          f"{rec['scale']['pods_created_total']}, queue peak "
+          f"{rec['queue_peak_depth']}, {rec['degraded_drains']} degraded "
+          f"drains, restart at queue {restart.get('queue_at_kill')} "
+          f"settled {restart.get('restart_to_settle_s')} s, device faults "
+          f"{rec['device_faults']}, lost wave {rec['device_lost_wave']}, "
+          f"{rec['requeued_pods']} requeued, breaker open "
+          f"{rec['breaker_open_seconds']} s, parity "
+          f"{rec['restart_parity']}, {rec['verifier_passes']} verifier "
+          f"passes, chaos injected {rec['chaos']['injected']}")
+    cap, tp = rec["capacity"], rec["tenancy_poison"]
+    kill, ov, df = rec["apiserver_kill"], rec["overload"], rec["defrag"]
+    print(f"phase 22: 22b capacity {cap['bound']}/{cap['offered']} bound, "
+          f"{cap['bind_capacity_rejects']} capacity 409s; tenancy poison "
+          f"{tp['bound']}/{tp['offered']}, re-promoted {tp['repromoted']}; "
+          f"apiserver kill at {kill['bound_at_kill']} bound / "
+          f"{kill['pending_at_kill']} pending, down {kill['downtime_s']} s, "
+          f"{kill['relists']} relists, {kill['acked_writes_lost']} lost; "
+          f"overload {ov['offered_multiple']}x, {ov['shed_429']} shed, "
+          f"goodput {ov['goodput_pods_per_s']} pods/s, queue "
+          f"{ov['max_queue_depth']}/{ov['queue_limit']}; defrag gain "
+          f"{df['defrag_gain']} over {df['migrations_executed']} "
+          f"migrations, {df['migrations_recovered']} recovered")
+    missed = soak.violations(rec)
+    if missed:
+        fail(f"22: {'; '.join(missed)}")
+    # The overload wave's scheduler is a process of its own: its
+    # launches come from its /debug/vars, not from this process's counts.
+    child = (rec.get("overload") or {}).get("daemon_launches") or {}
+    summed = {k: sum(w["launches"][k] for w in waves.values()) -
+              child.get(k, 0) for k in counts}
+    if summed != counts:
+        fail(f"22: the waves' launches in this process {summed} are not "
+             f"the phase's {counts}")
+    if dev == "cuda":
+        idle = [name for name, w in waves.items()
+                if w["launches"]["scan_chunk"] < 1]
+        if idle:
+            fail(f"22: scan_chunk never launched in {idle}")
+    a = waves["soak"]["launches"]
+    b = {k: sum(w["launches"][k] for name, w in waves.items()
+                if name != "soak") for k in counts}
+    print(f"phase 22: launches 22a {a}, 22b {b} (the overload wave's "
+          f"scheduler process {child}); passed in {secs:.3f} s")
+    return {"paths": {"a": a, "b": b}, "seconds": round(secs, 3)}
+
+
+class PhaseChild:
+    """A phase in a fresh interpreter (``chip_smoke.py --<flag>``),
+    started at once: after phases 1-19 this process's host work ran many
+    times slower than the same fleet alone (PERF.md, section 6).  Its
+    lines are echoed as they come; ``result()`` waits and returns the
+    phase's record, its last line.  ``stop()`` kills a child still
+    running (every exit path calls it)."""
+
+    def __init__(self, flag: str, key: str, phase: str, *opts: str):
+        print(f"phase {phase}: the smoke's process before the child: "
+              f"{process_state()}", flush=True)
+        self.flag, self.key, self.phase = flag, key, phase
+        self.last = ""
+        self.proc = subprocess.Popen(
+            [sys.executable, __file__, f"--{flag}", *opts],
+            stdout=subprocess.PIPE, text=True)
+        self.pump = threading.Thread(target=self._pump, daemon=True)
+        self.pump.start()
+
+    def _pump(self) -> None:
+        for line in self.proc.stdout:
+            print(line, end="", flush=True)
+            self.last = line
+
+    def result(self) -> dict:
+        try:
+            rc = self.proc.wait()
+            self.pump.join()
+        finally:
+            self.stop()
+        if rc != 0:
+            fail(f"{self.phase}: python3 chip_smoke.py --{self.flag} "
+                 f"exited {rc}")
+        return json.loads(self.last)[self.key]
+
+    def stop(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        self.pump.join(timeout=10)
+        self.proc.stdout.close()
+
+
+def phase_child(flag: str, key: str, phase: str, *opts: str) -> dict:
+    """A phase in a fresh interpreter, waited for (``PhaseChild``)."""
+    return PhaseChild(flag, key, phase, *opts).result()
 
 
 def main() -> int:
@@ -5329,14 +5469,14 @@ def main() -> int:
     ap.add_argument("--parity-nodes", type=int, default=5000)
     ap.add_argument("--parity-pods", type=int, default=4096)
     ap.add_argument("--rich-nodes", type=int, default=1000)
-    ap.add_argument("--rich-pods", type=int, default=1024)
+    ap.add_argument("--rich-pods", type=int, default=512)
     ap.add_argument("--single-nodes", type=int, default=5000)
-    ap.add_argument("--single-pods", type=int, default=128)
+    ap.add_argument("--single-pods", type=int, default=64)
     ap.add_argument("--extender-nodes", type=int, default=5000)
     ap.add_argument("--extender-probes", type=int, default=200)
     ap.add_argument("--factory-nodes", type=int, default=5000)
-    ap.add_argument("--factory-pods", type=int, default=1024)
-    ap.add_argument("--topology-pods", type=int, default=2048)
+    ap.add_argument("--factory-pods", type=int, default=512)
+    ap.add_argument("--topology-pods", type=int, default=1024)
     ap.add_argument("--binary-nodes", type=int, default=1000)
     ap.add_argument("--binary-pods", type=int, default=2048)
     ap.add_argument("--kernels-only", action="store_true",
@@ -5355,6 +5495,9 @@ def main() -> int:
                          "lines")
     ap.add_argument("--cm-only", action="store_true",
                     help="build and run phase 21 only; prints no result "
+                         "lines")
+    ap.add_argument("--soak-only", action="store_true",
+                    help="build and run phase 22 only; prints no result "
                          "lines")
     args = ap.parse_args()
     t_start = time.perf_counter()
@@ -5375,10 +5518,11 @@ def main() -> int:
     print(f"phase 1: card {card}; torch {torch.__version__} "
           f"cuda {torch.version.cuda}")
     t0 = time.perf_counter()
-    # --fleet-only and --cm-only load a library their parent smoke built
-    # (they build one if there is none); every other run rebuilds, for
-    # ptxas's report.
-    lib, log = kernels.build(verbose=not (args.fleet_only or args.cm_only))
+    # --fleet-only, --cm-only and --soak-only load a library their parent
+    # smoke built (they build one if there is none); every other run
+    # rebuilds, for ptxas's report.
+    child = args.fleet_only or args.cm_only or args.soak_only
+    lib, log = kernels.build(verbose=not child)
     print(f"phase 1: built {lib.name} (one nvcc command: "
           f"{', '.join(src.name for src in kernels.SOURCES)}) in "
           f"{time.perf_counter() - t0:.3f} s")
@@ -5400,6 +5544,10 @@ def main() -> int:
         # The last line: the phase's record, for a parent smoke to read.
         print(json.dumps({"cm": phase_cm(card)}))
         return 0
+    if args.soak_only:
+        # The last line: the phase's record, for a parent smoke to read.
+        print(json.dumps({"soak": phase_soak(card)}))
+        return 0
     def stamp(done: str) -> None:
         print(f"chip_smoke: {done} done at "
               f"{time.perf_counter() - t_start:.3f} s", flush=True)
@@ -5411,7 +5559,7 @@ def main() -> int:
     if args.kernels_only:
         return 0
     phase_parity("mixed", args.parity_nodes, args.parity_pods, CHUNK)
-    rich = phase_parity("rich", args.rich_nodes, args.rich_pods, 512)
+    rich = phase_parity("rich", args.rich_nodes, args.rich_pods, 256)
     full = phase_full(args.nodes, args.pods, CHUNK, card)
     phase_profile(args.nodes, PROFILE_PODS)
     single = phase_single(args.single_nodes, args.single_pods, card)
@@ -5441,8 +5589,17 @@ def main() -> int:
                           "--fleet-nodes", str(args.fleet_nodes),
                           "--fleet-replicas", str(args.fleet_replicas))
     stamp("phase 20")
-    cm21 = phase_child("cm-only", "cm", "21")
-    stamp("phase 21")
+    # Phases 21 and 22 run at once, each in its own interpreter: 21's
+    # wall is mostly the controller-manager's 5 requests/s, and the
+    # smoke with both in turn took 1,203 s of its 1,200 s (PERF.md, 4).
+    soak = PhaseChild("soak-only", "soak", "22")
+    try:
+        cm21 = phase_child("cm-only", "cm", "21")
+        stamp("phase 21")
+        soak22 = soak.result()
+    finally:
+        soak.stop()
+    stamp("phase 22")
 
     def wire_launches(kernel: str) -> dict:
         out = {f"wire_{run}": wire17[run]["counts"][kernel]
@@ -5460,6 +5617,9 @@ def main() -> int:
         # Phase 21's paths: 21a's rounds in process, 21b's daemon process.
         out.update({f"cm_21{sub}": counts[kernel]
                     for sub, counts in cm21["paths"].items()})
+        # Phase 22's paths: 22a's churn soak, 22b's five waves.
+        out.update({f"soak_22{sub}": counts[kernel]
+                    for sub, counts in soak22["paths"].items()})
         return out
 
     kernels_line = [{

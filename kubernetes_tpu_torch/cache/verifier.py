@@ -69,15 +69,26 @@ class Verifier:
     """Background cross-checker over one cache (+ optional device mirror
     and apiserver truth source).  ``truth`` is a zero-arg callable
     returning the apiserver's pod dicts (the factory passes
-    ``lambda: store.list("pods")[0]``)."""
+    ``lambda: store.list("pods")[0]``).  ``streams``, where given, is a
+    zero-arg callable naming the pod watch streams that feed the cache
+    (None while one is down and its reflector waits to relist): the
+    apiserver check counts a mismatch only when the same streams were
+    open from the first truth read to the grace re-read, since a
+    reflector between streams has not seen the deletes and binds of
+    that window yet (the factory passes its pod reflectors' tokens)."""
 
     def __init__(self, cache: object, resident: object = None,
                  truth: Optional[Callable[[], list]] = None,
                  sample: int = DEFAULT_SAMPLE, heal: bool = True,
-                 grace_s: float = APISERVER_GRACE_S, seed: int = 0):
+                 grace_s: float = APISERVER_GRACE_S, seed: int = 0,
+                 streams: Optional[Callable[[], object]] = None):
         self.cache = cache
         self.resident = resident
         self.truth = truth
+        self.streams = streams
+        # Apiserver checks left inconclusive: a pod stream was down or
+        # restarted inside the window.
+        self.relisting_skips = 0
         self.sample = sample
         self.heal = heal
         self.grace_s = grace_s
@@ -200,6 +211,7 @@ class Verifier:
     def _check_apiserver(self) -> list[Violation]:
         if self.truth is None:
             return []
+        streams0 = self.streams() if self.streams is not None else None
         try:
             first = self._apiserver_mismatches(self.truth())
         except Exception:  # noqa: BLE001 — an unreachable truth is not drift
@@ -214,6 +226,12 @@ class Verifier:
         try:
             second = self._apiserver_mismatches(self.truth())
         except Exception:  # noqa: BLE001
+            return []
+        if self.streams is not None and (
+                streams0 is None or self.streams() != streams0):
+            # A pod stream was down or relisted inside the window: its
+            # reflector is still catching up, which is lag, not drift.
+            self.relisting_skips += 1
             return []
         persistent = sorted(set(first) & set(second))
         return [Violation("apiserver", m) for m in persistent]

@@ -73,6 +73,10 @@ class Reflector:
         self._stop = threading.Event()
         self._synced = threading.Event()
         self._known: dict[str, dict] = {}  # key -> last delivered object
+        # The watch streams opened so far, and whether one is open now
+        # (stream_token).
+        self._stream_epoch = 0
+        self._streaming = False
         # Dispatch accounting children resolved once (kt-prof wire
         # attribution): handler nanoseconds accumulate locally and flush
         # per batch — relist delivery, idle tick, or every
@@ -131,6 +135,13 @@ class Reflector:
         self._synced.set()
         return rv
 
+    def stream_token(self) -> Optional[int]:
+        """The number of the watch stream now open, or None between a
+        stream's end and the next list + watch: a reader that sees the
+        same token before and after a wait knows every event of that
+        window was delivered by one live stream."""
+        return self._stream_epoch if self._streaming else None
+
     def run(self) -> threading.Thread:
         def loop():
             backoff = RELIST_BACKOFF_INITIAL
@@ -160,6 +171,8 @@ class Reflector:
                     backoff = min(backoff * 2, RELIST_BACKOFF_MAX)
                     continue
                 stream_started = time.monotonic()
+                self._stream_epoch += 1
+                self._streaming = True
                 # Handler nanoseconds accumulate here and flush per
                 # batch boundary (idle tick / flush threshold / stream
                 # end), so the steady-state event path pays two clock
@@ -202,6 +215,7 @@ class Reflector:
                         if acc_n >= self._DISPATCH_FLUSH_EVERY:
                             flush()
                 finally:
+                    self._streaming = False
                     flush()
                     watcher.stop()
                 # Reset the backoff only when the stream actually lived:

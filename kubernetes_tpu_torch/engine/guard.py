@@ -182,6 +182,9 @@ class DeviceGuard:
         self._last_fault: dict | None = None
         self._rejected_keys: set[str] = set()
         self.gate_rejects = 0
+        # Pods requeued with backoff because a fault surfaced (where the
+        # JAX guard decides them on its host engine).
+        self.requeued_pods = 0
         if self.enabled:
             metrics.ENGINE_MODE.set(0.0)
 
@@ -216,6 +219,13 @@ class DeviceGuard:
                        (time.monotonic() - self._last_probe), 0.0)
         return DeviceFault(kind, "breaker", RuntimeError(
             f"device breaker open; next probe in {wait:.1f} s"))
+
+    def note_requeued(self, pods: int) -> None:
+        """``pods`` pods of a drain that surfaced a fault went back to
+        the queue through backoff (``drain()``'s crash handler, the
+        single-pod path)."""
+        with self._lock:
+            self.requeued_pods += pods
 
     def note_success(self, probe: bool = False) -> None:
         """A device solve completed and passed the gate: close the
@@ -506,6 +516,7 @@ class DeviceGuard:
                 "bucketCap": self._bucket_cap,
                 "lastFault": self._last_fault,
                 "gateRejects": self.gate_rejects,
+                "requeuedPods": self.requeued_pods,
                 "hbmWatermark": self.hbm_watermark,
                 "breakerOpenSeconds": round(
                     self._open_s +

@@ -8,7 +8,8 @@ cpu] [--out build/BENCH_cuda.json] [--profile-dir DIR]``.  It reads the
 same environment names: ``BENCH_NODES`` (5000), ``BENCH_PODS`` (30000),
 ``BENCH_PROFILE`` (mixed), ``BENCH_DENSITY_RUNS`` (5), ``BENCH_WIRE`` (1),
 ``BENCH_WIRE_RUNS`` (3), ``BENCH_JOINT`` (1), ``BENCH_WORKLOADS`` (1),
-``BENCH_SERVING`` (1) and ``BENCH_FLEET`` (1); 0 skips a phase.
+``BENCH_SERVING`` (1), ``BENCH_FLEET`` (1) and ``BENCH_SOAK`` (1); 0
+skips a phase.
 
 * **density**: ``BENCH_DENSITY_RUNS`` runs of ``perf/harness.density``
   for each setting (``stream``, ``one-shot``; ``harness.py`` says what
@@ -24,7 +25,12 @@ same environment names: ``BENCH_NODES`` (5000), ``BENCH_PODS`` (30000),
   **fleet**: ``perf/harness.fleet_metrics`` at its defaults (the
   kubemark rig: 500 hollow kubelets, the replication manager, 2,000
   replicas and the daemon on the device), with the kernels' launches
-  and the scan kernel's plans in its drains.
+  and the scan kernel's plans in its drains; **soak**:
+  ``perf/soak.collect()`` at its defaults (the churn soak with the chaos
+  proxy, then the HA, capacity, tenancy poison, apiserver-kill, overload
+  and defrag waves; the ``BENCH_SOAK_*`` switches skip a wave), written
+  beside ``--out`` as ``SOAK_<backend>.json``; any bar of
+  ``soak.violations`` it misses fails the run.
 
 The headline keys (``value``, ``runs``, ``median``, ``elapsed_s_*``,
 ``stages``, ``device``, ``profile``, ``wire``) are the ``stream``
@@ -38,9 +44,9 @@ builds after each run's warm-up; it must be 0).
 
 Left out, each named under ``left_out`` in the artifact: ``cold_vs_warm``
 (the JAX persistent compile cache; the port has no per-shape compile),
-``soak`` and ``tenancy`` (ROADMAP §A items 1 and 2) and the ``xray``
-stamp (§A item 5).  It never writes the JAX package's
-records (``BENCH_r*.json``, ``BASELINE*``, ``SERVING_r*``, ...).
+``tenancy`` (ROADMAP §A item 1) and the ``xray`` stamp (§A item 5).
+It never writes the JAX package's records (``BENCH_r*.json``,
+``BASELINE*``, ``SERVING_r*``, ...).
 """
 
 from __future__ import annotations
@@ -56,8 +62,6 @@ LEFT_OUT = {
                     "cache; the port compiles nothing per shape and its "
                     "nvcc library is cached by a hash of its sources "
                     "(see library_build_s)",
-    "soak": "waits for ROADMAP §A item 2 (perf/soak.py with the chaos "
-            "proxy, the bind monitor and the disruption controller)",
     "tenancy": "waits for ROADMAP §A item 1 (the bench's call of "
                "perf/tenancy.collect, which runs on its own as python -m "
                "kubernetes_tpu_torch.perf.tenancy)",
@@ -348,6 +352,36 @@ def main(argv=None) -> int:
                 failures.append(f"fleet: {fleet['running']} of "
                                 f"{fleet['replicas']} replicas Running")
 
+    soak = None
+    if os.environ.get("BENCH_SOAK", "1") != "0":
+        from kubernetes_tpu_torch.perf import soak as soak_mod
+        before = harness.kernel_launches()
+        rec = None
+        try:
+            rec = soak_mod.collect(quiet=True, device=device)
+        except Exception as err:  # noqa: BLE001 — named; the run fails
+            failures.append(f"soak: {type(err).__name__}: {err}")
+        launches_by_path["soak"] = harness.launches_since(before)
+        if rec is not None:
+            path = os.path.join(out_dir, f"SOAK_{stamp['backend']}.json")
+            _write(path, rec)
+            missed = soak_mod.violations(rec)
+            soak = {
+                "settle_s": rec.get("settle_s"),
+                "steady_state_pods_per_s":
+                    rec.get("steady_state_pods_per_s"),
+                "invariant_violations": rec.get("invariant_violations"),
+                "double_binds": (rec.get("reconciliation") or {})
+                .get("double_binds"),
+                "restart_parity_pct": (rec.get("restart_parity") or {})
+                .get("decision_parity_pct"),
+                "violations": missed,
+                "record": path,
+            }
+            print(f"soak: {soak} -> {path}", file=sys.stderr)
+            if missed:
+                failures.append(f"soak: {'; '.join(missed)}")
+
     head = settings["stream"]
     post_prewarm = sum(r["device"]["post_prewarm_compiles"]
                        for r in settings.values()) + \
@@ -389,6 +423,8 @@ def main(argv=None) -> int:
         out["serving"] = serving
     if fleet is not None:
         out["fleet"] = fleet
+    if soak is not None:
+        out["soak"] = soak
     if post_prewarm:
         failures.append(f"{post_prewarm} kernel builds after the warm-up")
     from kubernetes_tpu_torch.utils import profiler

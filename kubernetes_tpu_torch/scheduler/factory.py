@@ -639,9 +639,16 @@ class ConfigFactory:
             # the device-resident tensors vs apiserver truth, self-healing
             # by full re-snapshot on mismatch.
             from kubernetes_tpu_torch.cache.verifier import Verifier
+            pod_reflectors = [r for r in self._reflectors
+                              if r.kind == "pods"]
+
+            def pod_streams():
+                tokens = tuple(r.stream_token() for r in pod_reflectors)
+                return None if None in tokens else tokens
             self.verifier = Verifier(
                 self.algorithm.cache, resident=self.algorithm.resident,
-                truth=lambda: self.store.list("pods")[0])
+                truth=lambda: self.store.list("pods")[0],
+                streams=pod_streams)
             self._threads.append(self.verifier.run(period=verify_period))
         if knobs.get_bool("KT_DEFRAG"):
             # Always-on defragmentation (scheduler/defrag.py): dry joint

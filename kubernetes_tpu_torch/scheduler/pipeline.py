@@ -143,15 +143,21 @@ class DrainPipeline:
                 log.exception("drain of %d pods crashed; requeueing",
                               len(pods))
             cache = daemon.config.algorithm.cache
+            requeued = 0
             for pod in pods:
                 # Skip pods the crash didn't strand: anything tracked in
                 # the cache (assumed by a completed chunk, or already
                 # confirmed bound by the watch) made it through.
                 if not cache.contains(pod.key):
+                    requeued += 1
                     daemon._handle_failure(
                         pod, "SchedulingError",
                         "internal error during scheduling",
                         result="error")
+            guard = getattr(daemon.config.algorithm, "guard", None)
+            if guard is not None and \
+                    isinstance(sys.exc_info()[1], DeviceFault):
+                guard.note_requeued(requeued)
             return len(pods)
         finally:
             root.end()

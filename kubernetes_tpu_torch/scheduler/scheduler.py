@@ -291,6 +291,9 @@ class Scheduler:
             except DeviceFault as fault:
                 # Counted by the guard where it struck; with no host
                 # engine to decide the pod, it requeues with backoff.
+                guard = getattr(self.config.algorithm, "guard", None)
+                if guard is not None:
+                    guard.note_requeued(1)
                 self._handle_failure(pod, "SchedulingError",
                                      f"device fault: {fault}",
                                      result="error")

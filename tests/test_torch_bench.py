@@ -14,6 +14,9 @@ the CPU.
   ``fleet`` record at a toy size among them); its
   ``backend`` is ``cpu`` on the CPU; ``--device cuda`` without a card
   exits non-zero; the JAX package's record names are refused.
+* The soak phase: ``BENCH_SOAK=0`` skips it; otherwise it writes
+  ``SOAK_<backend>.json`` beside ``--out`` and a record that misses a bar
+  of ``soak.violations`` fails the run.
 """
 
 from __future__ import annotations
@@ -116,8 +119,8 @@ def test_the_artifact_carries_the_reference_keys(tmp_path, monkeypatch):
     for k, v in {"BENCH_NODES": "16", "BENCH_PODS": "48",
                  "BENCH_DENSITY_RUNS": "2", "BENCH_WIRE_RUNS": "1",
                  "BENCH_WL_NODES": "20", "BENCH_WL_PODS": "80",
-                 "KT_NATIVE_APISERVER": "0", "KT_WIRE_CHUNK": "256"
-                 }.items():
+                 "KT_NATIVE_APISERVER": "0", "KT_WIRE_CHUNK": "256",
+                 "BENCH_SOAK": "0"}.items():
         monkeypatch.setenv(k, v)
     real_fleet = harness.fleet_metrics
 
@@ -145,8 +148,8 @@ def test_the_artifact_carries_the_reference_keys(tmp_path, monkeypatch):
     art = json.loads(out.read_text())
     ref = json.loads((REPO / "BENCH_r16.json").read_text())["parsed"]
     assert set(ref) - set(art) == set(bench.LEFT_OUT) & set(ref)
-    assert set(bench.LEFT_OUT) == {"cold_vs_warm", "soak", "tenancy",
-                                   "xray"}
+    assert set(bench.LEFT_OUT) == {"cold_vs_warm", "tenancy", "xray"}
+    assert "soak" not in art  # BENCH_SOAK=0
     assert set(art["fleet"]) >= set(ref["fleet"])
     assert art["fleet"]["running"] == art["fleet"]["replicas"] == 12
     assert set(art["wire"]) >= set(ref["wire"])
@@ -182,3 +185,71 @@ def test_the_bench_refuses_a_missing_card_and_reference_records():
         assert "no CUDA device" in str(err.value.code)
     with pytest.raises(SystemExit, match="record of the JAX package"):
         bench.main(["--device", "cpu", "--out", "BENCH_r16.json"])
+
+
+def test_left_out_no_longer_names_the_soak():
+    from kubernetes_tpu_torch.perf import bench
+    assert "soak" not in bench.LEFT_OUT
+    assert set(bench.LEFT_OUT) == {"cold_vs_warm", "tenancy", "xray"}
+
+
+def _clean_soak_record() -> dict:
+    return {"settle_s": 0.5, "steady_state_pods_per_s": 10.0,
+            "invariant_violations": 0, "engine_mode_final": "device",
+            "reconciliation": {"double_binds": 0, "stranded_pending": 0,
+                               "orphaned_assumes": 0,
+                               "bound_to_missing_node": 0},
+            "restart_parity": {"samples": 8, "decision_parity_pct": 100.0},
+            "device_lost_wave": {"tripped": True, "repromoted": True}}
+
+
+def _bench_with_soak(tmp_path, monkeypatch, record, soak_on=True) -> tuple:
+    """The bench at its smallest (one density run per setting, every
+    other phase off) with ``soak.collect`` returning ``record``."""
+    from kubernetes_tpu_torch.perf import bench, soak
+    for k, v in {"BENCH_NODES": "16", "BENCH_PODS": "48",
+                 "BENCH_DENSITY_RUNS": "1", "BENCH_WIRE": "0",
+                 "BENCH_JOINT": "0", "BENCH_WORKLOADS": "0",
+                 "BENCH_SERVING": "0", "BENCH_FLEET": "0",
+                 "BENCH_SOAK": "1" if soak_on else "0"}.items():
+        monkeypatch.setenv(k, v)
+    calls = []
+
+    def fake_collect(quiet=False, device="cuda"):
+        calls.append(device)
+        return record
+    monkeypatch.setattr(soak, "collect", fake_collect)
+    out = tmp_path / "BENCH_cpu.json"
+    rc = bench.main(["--device", "cpu", "--out", str(out)])
+    return rc, json.loads(out.read_text()), calls
+
+
+def test_bench_soak_zero_skips_the_phase(tmp_path, monkeypatch):
+    rc, art, calls = _bench_with_soak(tmp_path, monkeypatch,
+                                      _clean_soak_record(), soak_on=False)
+    assert rc == 0 and calls == [] and "soak" not in art
+    assert "soak" not in art["launches_by_path"]
+    assert not (tmp_path / "SOAK_cpu.json").exists()
+
+
+def test_the_soak_phase_writes_its_record(tmp_path, monkeypatch):
+    rc, art, calls = _bench_with_soak(tmp_path, monkeypatch,
+                                      _clean_soak_record())
+    assert rc == 0 and calls == ["cpu"] and art["failures"] == []
+    assert art["soak"]["violations"] == []
+    assert art["soak"]["restart_parity_pct"] == 100.0
+    assert art["launches_by_path"]["soak"]["scan_chunk"] == 0
+    written = json.loads((tmp_path / "SOAK_cpu.json").read_text())
+    assert written == _clean_soak_record()
+
+
+@pytest.mark.parametrize("field,value", [
+    ("invariant_violations", 2), ("engine_mode_final", "open")])
+def test_a_soak_record_with_a_violation_fails_the_run(tmp_path,
+                                                      monkeypatch, field,
+                                                      value):
+    rec = dict(_clean_soak_record(), **{field: value})
+    rc, art, _ = _bench_with_soak(tmp_path, monkeypatch, rec)
+    assert rc == 1
+    assert art["soak"]["violations"]
+    assert [f for f in art["failures"] if f.startswith("soak: ")]

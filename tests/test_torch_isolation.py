@@ -92,6 +92,9 @@ def test_port_sources_import_no_jax_and_no_reference_package():
             "controller/podautoscaler.py", "controller/scheduledjob.py",
             "controller/petset.py", "controller/__main__.py",
             "kubectl/__init__.py", "kubectl/__main__.py"} <= names
+    # The churn soak.
+    assert {"chaos/proxy.py", "chaos/bindmonitor.py", "chaos/__init__.py",
+            "perf/soak.py", "perf/soak_repeat.py"} <= names
     bad = {str(f.relative_to(REPO)): [m for m in _imports(f)
                                       if _forbidden(m)]
            for f in files}
@@ -256,13 +259,15 @@ def test_the_daemon_binary_on_the_cpu_and_without_a_card(tmp_path):
 
 def test_entry_points_default_to_cuda_and_raise_without_it():
     from kubernetes_tpu_torch.engine.solver import ResidentCluster
-    from kubernetes_tpu_torch.perf import synth
+    from kubernetes_tpu_torch.perf import soak, synth
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ResidentCluster()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         synth.make_rig(4, 4)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        soak.collect()
 
 
 def test_the_apiserver_binary_loads_no_jax_module():

@@ -14,7 +14,10 @@ against the JAX package's, on the CPU.
 * a corrupted resident row on the port's CPU engine is named, healed by
   a full re-upload, and a follow-up drain places pods as an uncorrupted
   engine does;
-* ``KT_VERIFY_PERIOD`` on the port's daemon over a ``MemStore``."""
+* ``KT_VERIFY_PERIOD`` on the port's daemon over a ``MemStore``;
+* the port's ``streams`` guard: an apiserver mismatch counts only while
+  the same pod watch streams were open over the check's window, and a
+  reflector's ``stream_token`` follows its streams."""
 
 from __future__ import annotations
 
@@ -256,3 +259,55 @@ def test_verifier_runs_in_the_daemon(monkeypatch):
         assert f.verifier.violations_total == 0
     finally:
         f.stop()
+
+
+@pytest.mark.parametrize("streams,counted", [
+    (lambda: (1, 1), True),      # the same live streams: drift counts
+    (lambda: None, False),       # a pod stream is down: lag
+])
+def test_a_ghost_counts_only_while_the_pod_streams_held(streams, counted):
+    """The port's ``streams`` guard: the ghost of the reference's
+    ``ghost`` case counts when the same pod watch streams were open over
+    the whole window, and is left inconclusive while one is down."""
+    m = _mods("port")
+    store = m["MemStore"]()
+    algo = m["engine"]()
+    for i in range(2):
+        algo.cache.add_node(_o(make_node(f"vn{i}"), "port"))
+        store.create("nodes", _node_json(f"vn{i}"))
+    algo.cache.add_pod(_o(make_pod("ghost", node_name="vn0"), "port"))
+    v = m["Verifier"](algo.cache, truth=lambda: store.list("pods")[0],
+                      grace_s=0.05, streams=streams)
+    viol = [x.kind for x in v.verify_once()]
+    assert viol == (["apiserver"] if counted else [])
+    assert v.relisting_skips == (0 if counted else 1)
+
+
+def test_a_stream_restart_inside_the_window_is_inconclusive():
+    m = _mods("port")
+    store = m["MemStore"]()
+    algo = m["engine"]()
+    algo.cache.add_node(_o(make_node("vn0"), "port"))
+    store.create("nodes", _node_json("vn0"))
+    algo.cache.add_pod(_o(make_pod("ghost", node_name="vn0"), "port"))
+    tokens = iter([(1,), (2,)])
+    v = m["Verifier"](algo.cache, truth=lambda: store.list("pods")[0],
+                      grace_s=0.05, streams=lambda: next(tokens))
+    assert v.verify_once() == [] and v.relisting_skips == 1
+
+
+def test_reflector_stream_token_follows_its_streams():
+    from kubernetes_tpu_torch.apiserver.memstore import MemStore
+    from kubernetes_tpu_torch.client.reflector import Reflector
+    store = MemStore()
+    r = Reflector(store, "pods", lambda *_: None)
+    assert r.stream_token() is None
+    r.run()
+    deadline = time.monotonic() + 10
+    while r.stream_token() != 1:
+        assert time.monotonic() < deadline
+        time.sleep(0.01)
+    r.stop()
+    while r.stream_token() is not None:
+        assert time.monotonic() < deadline
+        time.sleep(0.01)
