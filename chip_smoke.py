@@ -93,7 +93,11 @@ fails the run with a non-zero exit:
    ``JointSolver`` gate on, one one-shot joint solve: every pod's node
    passes every predicate at batch start, no node over capacity, and a
    split (evaluate, 24 price iterations, order and permutation, the
-   repair scan, readback, assume/bind);
+   repair scan, readback, assume/bind); (c) the mesh
+   (``parallel/mesh.py``) at the north-star cluster, 32 pods, k = 1, 2
+   and 4 node shards on the one card: the one-shot evaluate, the
+   sequential-greedy solve and the joint solve equal the unsharded
+   solver's exactly;
 15. harnesses: ``perf/parity.run_parity`` (1,000 x 10,000 ``rich``, 100
    sampled decisions, one one-shot scan launch) on the card with at
    least 99% agreement with the oracle, then ``run_preemption_parity``
@@ -130,8 +134,9 @@ fails the run with a non-zero exit:
    ``main`` called in process) at the north star, 5,000 ``mixed`` nodes
    x 30,000 pods, with only the repeats cut: 2 density runs and 1 wire
    run (the native apiserver) per setting (``stream``, ``one-shot``), its
-   ``fleet`` and ``soak`` phases off (``BENCH_FLEET=0``,
-   ``BENCH_SOAK=0``: phases 20b and 22 run them),
+   ``fleet``, ``soak`` and ``tenancy`` phases off (``BENCH_FLEET=0``,
+   ``BENCH_SOAK=0``: phases 20b and 22 run them; ``BENCH_TENANCY=0``:
+   the tenancy bench runs beside the smoke),
    the serving rows with a 5 s trickle, joint and workloads at the
    reference's sizes.  Every density and wire run binds all 30,000
    pods, 0 zero-bound and 0 failed wire runs, 0 kernel builds after a
@@ -1935,7 +1940,8 @@ def price_bound(p: int, n: int, iters: int) -> tuple[float, str]:
 def phase_joint(nodes: int, pods: int, card: str) -> dict:
     """14 (a) ``joint_quality`` at its own configuration on cuda and cpu,
     identical placements; (b) the north star through the daemon with the
-    JointSolver gate on: one one-shot joint solve at full width."""
+    JointSolver gate on: one one-shot joint solve at full width; (c) the
+    mesh (``phase_mesh``)."""
     import torch
     from kubernetes_tpu_torch.perf import synth
     from kubernetes_tpu_torch.perf import workloads as wl
@@ -2050,10 +2056,74 @@ def phase_joint(nodes: int, pods: int, card: str) -> dict:
           f"assume/bind {commit[0]:.3f} s; every pod's node passes every "
           f"predicate at batch start, 0 nodes over capacity; launches "
           f"{launches_b}; price iteration bound {b_ms:.6f} ms ({b_by})")
+    mesh_rec = phase_mesh(nodes, MESH_PODS, card)
     return {"quality": launches_a["scan_chunk"],
             "north": launches_b["scan_chunk"], "price_s": price,
             "evaluate_s": acc["evaluate"], "scan_s": acc["scan"],
-            "price_bound_ms": b_ms}
+            "price_bound_ms": b_ms, "mesh": mesh_rec}
+
+
+# Phase 14c's batch: the mesh's scan runs the step loop per shard (a few
+# hundred small launches a pod at k = 4), so its budget of 5 s sets P.
+MESH_PODS = 32
+MESH_SHARDS = (1, 2, 4)
+
+
+def phase_mesh(nodes: int, pods: int, card: str, dev: str = "cuda") -> dict:
+    """14c: ``parallel/mesh.py`` at the north-star cluster (``nodes``
+    ``mixed`` nodes, ``pods`` pods): for k shards (all on the one card),
+    the one-shot evaluate (pods over a batch axis of 2 for even k), the
+    sequential-greedy solve and the joint solve equal the unsharded
+    solver's (its scan and repair through the scan kernel) exactly."""
+    import torch
+    from kubernetes_tpu_torch.engine import solver as sv
+    from kubernetes_tpu_torch.parallel import mesh
+    from kubernetes_tpu_torch.perf import synth
+
+    t0 = time.perf_counter()
+    sched, plist = synth.make_rig(nodes, pods, profile="mixed", device=dev)
+    batch, db, dc, _nt = sched._compile(plist)
+    flags = sv.batch_flags(batch)
+    s = sched.solver
+    zero = torch.zeros(1, dtype=torch.int64, device=dev)
+    zero_counts()
+    ref_f, ref_s = s.evaluate(db, dc, flags)
+    ref_c, ref_k, _ = s._solve_scan(db, dc, zero, None, flags)
+    ref_jc, ref_jk, _ = s.solve_joint(db, dc, zero, flags=flags)
+    ref_launches = kernel_counts()
+    placed = int((ref_c >= 0).sum().item())
+    zero_counts()
+    secs = {}
+    for k in MESH_SHARDS:
+        t = time.perf_counter()
+        m = mesh.make_mesh(k, batch=2 if k % 2 == 0 else 1, device=dev)
+        f, sc = mesh.evaluate(s, db, dc, m, flags)
+        nm = mesh.Mesh(m.devices, 1)
+        c, kk, _ = mesh.solve_sequential(s, db, dc, zero, nm, flags)
+        jc, jk, _ = mesh.solve_joint(s, db, dc, zero, nm, flags=flags)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        secs[k] = round(time.perf_counter() - t, 3)
+        for what, got, want in (("feasible", f, ref_f), ("scores", sc, ref_s),
+                                ("choices", c, ref_c), ("counter", kk, ref_k),
+                                ("joint choices", jc, ref_jc),
+                                ("joint counter", jk, ref_jk)):
+            if not torch.equal(got, want):
+                fail(f"14c: {k} shards: the sharded {what} differ from "
+                     f"the unsharded solver's")
+    total = time.perf_counter() - t0
+    mesh_launches = kernel_counts()
+    if any(mesh_launches.values()):
+        fail(f"14c: the sharded paths launched {mesh_launches}: the mesh "
+             f"runs torch ops only")
+    print(f"phase 14c: {card if dev == 'cuda' else dev}: the mesh at "
+          f"{nodes} nodes x {pods} pods, k in {list(MESH_SHARDS)} shards "
+          f"on {m.devices[0]}: evaluate, sequential solve and joint solve "
+          f"equal the unsharded solver's ({placed} placed; its launches "
+          f"{ref_launches}, the mesh's {mesh_launches}); s per k {secs}; "
+          f"{total:.3f} s in all")
+    return {"seconds": round(total, 3), "per_k": secs, "placed": placed,
+            "launches": ref_launches}
 
 
 # Phase 15's oracle sample: 100 decisions (200 took ~38 s to replay in
@@ -2847,8 +2917,11 @@ def phase_bench(nodes: int, pods: int, card: str,
            "BENCH_WIRE": "1", "BENCH_WIRE_RUNS": "1", "BENCH_JOINT": "1",
            "BENCH_WORKLOADS": "1", "BENCH_SERVING": "1",
            # Phase 20b runs fleet_metrics at the same size and phase 22
-           # the soak: cut here so neither runs twice.
-           "BENCH_FLEET": "0", "BENCH_SOAK": "0"}
+           # the soak: cut here so neither runs twice.  The tenancy
+           # bench (~1 min on the card) does not fit the smoke: it runs
+           # beside it (python -m kubernetes_tpu_torch.perf.bench with
+           # only BENCH_TENANCY on).
+           "BENCH_FLEET": "0", "BENCH_SOAK": "0", "BENCH_TENANCY": "0"}
     zero_counts()
     t0 = time.perf_counter()
     art = run_bench(env, ["--device", dev, "--out", out,

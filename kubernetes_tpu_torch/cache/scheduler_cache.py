@@ -16,13 +16,13 @@ snapshotting of UpdateNodeNameToInfoMap (cache.go:77-91).
 
 from __future__ import annotations
 
-import threading
 import time
 from dataclasses import dataclass
 from typing import TYPE_CHECKING, Callable, Optional
 
 from kubernetes_tpu_torch.api import types as api
 from kubernetes_tpu_torch.features import compiler as fc
+from kubernetes_tpu_torch.utils import locktrace
 
 if TYPE_CHECKING:  # torch-free at import: the cache stays host-only
     from kubernetes_tpu_torch.engine.workloads.preemption import VictimTable
@@ -63,8 +63,10 @@ class SchedulerCache:
         # forget failed binds while the scheduling loop assumes new batches.
         # The drain holds this lock across the whole batch
         # snapshot/compile by design (the snapshot must be consistent
-        # against concurrent assumes).
-        self.lock = threading.RLock()
+        # against concurrent assumes), so its hold time is the compile
+        # stage span, not a long-hold bug; order tracking stays on.
+        self.lock = locktrace.make_rlock("cache.SchedulerCache",
+                                         hold_ms=0)
         self._nodes: dict[str, api.Node] = {}
         self._node_order: list[str] = []
         self._pod_states: dict[str, _PodState] = {}

@@ -55,6 +55,24 @@ _builds = 0
 _tls = threading.local()    # .path — the live path running right now
 
 
+# -- host reads and syncs outside the solve paths ---------------------------
+
+def to_host(t: torch.Tensor):
+    """``t`` read back as a numpy array: the one readback site of host
+    layers that hold an engine-returned tensor (the extender's
+    per-template evaluate rows and failure masks).  Unrecorded, as the
+    JAX package's extender reads them with ``np.asarray``."""
+    return t.cpu().numpy()
+
+
+def synchronize(device: "torch.device | str") -> None:
+    """Wait for the work queued on ``device`` (a no-op off CUDA): the
+    prewarm's per-step timing edge."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
 # -- transfer accounting -----------------------------------------------------
 
 def nbytes(tree: object) -> int:

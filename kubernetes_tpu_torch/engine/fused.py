@@ -95,6 +95,14 @@ def select_rows(masked: torch.Tensor, counter: torch.Tensor
 select_rows.launches = 0
 
 
+def warm(n: int, device: "torch.device | str") -> torch.Tensor:
+    """One launch of the select on a zero row of ``n`` nodes: the
+    prewarm's ``select_rows@1`` key."""
+    return select_rows(torch.zeros((1, n), dtype=torch.float32,
+                                   device=device),
+                       torch.zeros(1, dtype=torch.int64, device=device))
+
+
 def select(masked: torch.Tensor, counter: torch.Tensor
            ) -> tuple[torch.Tensor, torch.Tensor]:
     """One scan step's select: ``masked`` [N] f32, ``counter`` [1] int64

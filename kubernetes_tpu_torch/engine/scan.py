@@ -214,6 +214,7 @@ def term_lists(dense: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     k = torch.arange(flat.numel(), dtype=torch.int64, device=dev)
     dest = torch.where(flat, incl - 1, incl[-1] + k - incl)
     cols = (k % s).to(i32)
+    # kt-xray: in-place(into a fresh tensor: every position once)
     idx = torch.empty_like(cols).scatter_(0, dest, cols)
     off = torch.cat([torch.zeros(1, dtype=i32, device=dev),
                      incl.view(p, s)[:, -1].to(i32)])

@@ -402,6 +402,8 @@ class ResidentCluster:
                                space.topo_keys.capacity, fill=-1))
         idx_d = torch.from_numpy(idx).to(self.device)
         rows_d = to_device(rows, self.device)
+        # kt-xray: no-alias(a streamed drain still reads the planes it
+        # started from: each scatter makes new planes, never writes them)
         self.dc = DeviceCluster(*[arr.index_copy(0, idx_d, new)
                                   for arr, new in zip(self.dc, rows_d)])
         self.stats["row_syncs"] += 1
@@ -616,6 +618,24 @@ class Solver:
         provably cannot trigger — an all-pass mask or all-zero plane."""
         n = c.alloc.shape[0]
         p = b.request.shape[0]
+        skip_preds = self.evaluate_skips(flags)
+        # Unready nodes are filtered before scheduling (factory.go:436-462).
+        feasible = c.schedulable[None, :].expand(p, n).contiguous()
+        for name in self.predicate_names:
+            if name not in skip_preds:
+                feasible = feasible & \
+                    _predicate_mask(name, b, c, n, self.extra)
+        scores = torch.zeros((p, n), dtype=torch.float32,
+                             device=c.alloc.device)
+        for name, weight, aux in self.evaluate_priorities(flags):
+            scores = scores + float(weight) * \
+                _priority_plane(name, b, c, n, {"aux": aux})
+        return feasible, scores
+
+    @staticmethod
+    def evaluate_skips(flags: BatchFlags) -> set[str]:
+        """The predicates ``evaluate`` leaves out: all-pass masks for a
+        batch whose content cannot trigger them."""
         skip_preds = set()
         if not flags.any_ports:
             skip_preds |= {"PodFitsHostPorts", "PodFitsPorts"}
@@ -627,21 +647,14 @@ class Solver:
             skip_preds.add("MaxGCEPDVolumeCount")
         if not flags.any_affinity_pred:
             skip_preds.add("MatchInterPodAffinity")
-        # Unready nodes are filtered before scheduling (factory.go:436-462).
-        feasible = c.schedulable[None, :].expand(p, n).contiguous()
-        for name in self.predicate_names:
-            if name not in skip_preds:
-                feasible = feasible & \
-                    _predicate_mask(name, b, c, n, self.extra)
-        scores = torch.zeros((p, n), dtype=torch.float32,
-                             device=c.alloc.device)
-        for name, weight, aux in self.priority_specs:
-            if name == "InterPodAffinityPriority" and \
-                    not flags.any_affinity_prio:
-                continue  # all counts provably zero -> score plane is zero
-            scores = scores + float(weight) * \
-                _priority_plane(name, b, c, n, {"aux": aux})
-        return feasible, scores
+        return skip_preds
+
+    def evaluate_priorities(self, flags: BatchFlags) -> tuple:
+        """The (name, weight, aux) priorities ``evaluate`` sums, in order:
+        all but an inter-pod plane whose counts are provably zero."""
+        return tuple(sp for sp in self.priority_specs
+                     if sp[0] != "InterPodAffinityPriority" or
+                     flags.any_affinity_prio)
 
     # -- sequential greedy solve ----------------------------------------
 
@@ -733,6 +746,7 @@ class Solver:
             util = torch.where(feasible,
                                scores - _price_cost(demand, free, lam), neg)
             choice = util.argmax(dim=1)
+            # kt-xray: in-place(into a fresh zero tensor of this step)
             load = torch.zeros_like(lam, dtype=torch.int64).index_add_(
                 0, choice, bids).to(f32)
             over = torch.clamp(load - free, min=0.0) / free
@@ -816,10 +830,34 @@ class Solver:
         chunk's final state is consumed by the next chunk only."""
         n = c.alloc.shape[0]
         p = b.request.shape[0]
+        in_scan_preds, static_prios, dynamic_prios, fams = \
+            self.scan_layout(flags)
+        static_mask = c.schedulable[None, :].expand(p, n)
+        for name in self.predicate_names:
+            if name not in in_scan_preds:
+                static_mask = static_mask & \
+                    _predicate_mask(name, b, c, n, self.extra)
+        if live is not None:
+            static_mask = static_mask & live[:, None]
+        if extra_mask is not None:
+            static_mask = static_mask & extra_mask
+        static_score = score_bias if score_bias is not None else \
+            torch.zeros((p, n), dtype=torch.float32, device=c.alloc.device)
+        for name, weight, aux in static_prios:
+            static_score = static_score + float(weight) * \
+                _priority_plane(name, b, c, n, {"aux": aux})
+        return self._fused_scan(b, c, last_node_index, static_mask,
+                                static_score, carry, score_bias is not None,
+                                fams, dynamic_prios, route, cluster)
 
-        # Hoist placement-invariant work: static predicate masks and
-        # static priority planes.  A policy-dynamic predicate whose inputs
-        # are absent from this batch (flags) is hoisted too.
+    def scan_layout(self, flags: BatchFlags
+                    ) -> tuple[set, tuple, tuple, dict]:
+        """How the scan splits the policy for a batch with ``flags``:
+        (the predicates checked in the scan, the static priorities
+        hoisted into the encoded plane, the dynamic priorities scored per
+        step, the state families the scan carries).  Placement-invariant
+        work is hoisted; a policy-dynamic predicate whose inputs are
+        absent from this batch (flags) is hoisted too."""
         use_resources = "PodFitsResources" in self.predicate_names
         use_ports = flags.any_ports and any(
             nm in self.predicate_names
@@ -843,17 +881,7 @@ class Solver:
             in_scan_preds.add("MaxEBSVolumeCount")
         if use_max_gce:
             in_scan_preds.add("MaxGCEPDVolumeCount")
-        static_mask = c.schedulable[None, :].expand(p, n)
-        for name in self.predicate_names:
-            if name not in in_scan_preds:
-                static_mask = static_mask & \
-                    _predicate_mask(name, b, c, n, self.extra)
-        if live is not None:
-            static_mask = static_mask & live[:, None]
-        if extra_mask is not None:
-            static_mask = static_mask & extra_mask
-        static_score = score_bias if score_bias is not None else \
-            torch.zeros((p, n), dtype=torch.float32, device=c.alloc.device)
+        static_prios = []
         dynamic_prios = []
         for name, weight, aux in self.priority_specs:
             in_scan = name in DYNAMIC_PRIORITIES
@@ -868,8 +896,7 @@ class Solver:
             if in_scan:
                 dynamic_prios.append((name, weight, aux))
             else:
-                static_score = static_score + float(weight) * \
-                    _priority_plane(name, b, c, n, {"aux": aux})
+                static_prios.append((name, weight, aux))
         dynamic_prios = tuple(dynamic_prios)
         use_interpod_prio = any(nm == "InterPodAffinityPriority"
                                 for nm, _, _ in dynamic_prios)
@@ -885,9 +912,7 @@ class Solver:
             track_spread_zones=track_spread and flags.any_spread_zones,
             track_saa=any(nm == "ServiceAntiAffinityPriority"
                           for nm, _, _ in dynamic_prios))
-        return self._fused_scan(b, c, last_node_index, static_mask,
-                                static_score, carry, score_bias is not None,
-                                fams, dynamic_prios, route, cluster)
+        return in_scan_preds, tuple(static_prios), dynamic_prios, fams
 
     # Dynamic priorities whose pod-dependence is ONLY the nonzero-request
     # row: their per-step [N] score plane is a function of (template,
@@ -1122,6 +1147,9 @@ class Solver:
                 kw.update(node_zone=zone_ids, has_zones=b.spread_has_zones,
                           sp_zone=state["sp_zone"], sp_maxz=state["sp_maxz"])
             kw.update(self._rich_kernel_args(b, c, state, fams, other_prios))
+            # kt-xray: in-place(the kernel updates the chunk's carried
+            # state: copies of the cluster's planes made above, or the
+            # previous chunk's state, which only this chunk consumes)
             choices = scan_mod.scan_chunk(
                 enc, request=b.request, nonzero=b.nonzero,
                 zero_request=b.zero_request, alloc=c.alloc, packed=packed,
@@ -1246,26 +1274,32 @@ class Solver:
             placed = choice >= 0                                   # [1]
             j = torch.clamp(choice, min=0).to(i64)                 # [1]
             pf = placed.to(f32)
+            # kt-xray: in-place(the chunk's carried state, as the kernel)
             packed.index_add_(0, j, req6[i:i + 1] * placed.to(i32))
             if use_templates:
+                # kt-xray: in-place(the carried template plane)
                 state["D"].index_copy_(1, j, self._template_col(
                     tmpl_prios, b.nz_templates,
                     packed.index_select(0, j)[:, 4:6],
                     c.alloc.index_select(0, j)))
             if use_ports:
                 pu = state["ports_used"]
+                # kt-xray: in-place(the carried port rows)
                 pu.index_copy_(0, j, pu.index_select(0, j)
                                | (b.ports[i] & placed)[None, :])
             if use_volumes:
                 va, vr = state["vol_any"], state["vol_rw"]
+                # kt-xray: in-place(the carried volume rows)
                 va.index_copy_(0, j, va.index_select(0, j)
                                | ((b.vol_rw[i] | b.vol_ro[i])
                                   & placed)[None, :])
+                # kt-xray: in-place(the carried volume rows)
                 vr.index_copy_(0, j, vr.index_select(0, j)
                                | (b.vol_rw[i] & placed)[None, :])
             if track_spread:
                 incr = incr_f[i] * pf                              # [S]
                 new_col = state["sp_node"].index_select(1, j)[:, 0] + incr
+                # kt-xray: in-place(the carried spread counts)
                 state["sp_node"].index_copy_(1, j, new_col[:, None])
                 # The placed node is feasible hence schedulable, so the
                 # max-over-schedulable moves only through its column; an
@@ -1280,6 +1314,7 @@ class Solver:
                     zval = incr * (zid >= 0).to(f32)
                     new_zcol = state["sp_zone"].index_select(1, zc)[:, 0] \
                         + zval
+                    # kt-xray: in-place(the carried zone counts)
                     state["sp_zone"].index_copy_(1, zc, new_zcol[:, None])
                     state["sp_maxz"] = torch.where(
                         placed & (zid >= 0),
@@ -1288,6 +1323,7 @@ class Solver:
             for fam, on in (("ebs", use_max_ebs), ("gce", use_max_gce)):
                 if on:
                     pd = state[f"pd_{fam}"]
+                    # kt-xray: in-place(the carried disk rows)
                     pd.index_copy_(0, j, pd.index_select(0, j) | (
                         getattr(vs, f"pd_pod_{fam}")[i] & placed)[None, :])
             if track_saa:

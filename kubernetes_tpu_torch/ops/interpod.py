@@ -34,11 +34,20 @@ def topo_rows(node_dom: torch.Tensor, keys: torch.Tensor,
     (topologies.go:66-76): key row >= 0 compares that key's domain ids;
     -1 (empty topologyKey) matches under ANY default failure-domain
     key."""
+    return topo_rows_col(node_dom, keys,
+                         node_dom.index_select(1, choice)[:, 0])
+
+
+def topo_rows_col(node_dom: torch.Tensor, keys: torch.Tensor,
+                  col: torch.Tensor) -> torch.Tensor:
+    """:func:`topo_rows` from the chosen node's domain column ``col``
+    [K] (``node_dom[:, choice]``), which a node shard of
+    ``parallel/mesh.py`` receives from the shard holding the node."""
     dom_sel = node_dom[torch.clamp(keys, min=0).long()]          # [S, N]
-    dom_c = dom_sel.index_select(1, choice)                      # [S, 1]
+    dom_c = col[torch.clamp(keys, min=0).long()][:, None]        # [S, 1]
     specific = (dom_sel == dom_c) & (dom_sel >= 0)
     ddom = node_dom[:N_DEFAULT_KEYS]                             # [D, N]
-    ddc = ddom.index_select(1, choice)                           # [D, 1]
+    ddc = col[:N_DEFAULT_KEYS][:, None]                          # [D, 1]
     any_default = torch.any((ddom == ddc) & (ddom >= 0), dim=0)
     return torch.where((keys >= 0)[:, None], specific, any_default[None, :])
 
@@ -74,14 +83,19 @@ def priority_counts(pref_w: torch.Tensor, match_cnt: torch.Tensor,
 
 
 def priority_score(counts: torch.Tensor, schedulable: torch.Tensor,
-                   trunc) -> torch.Tensor:
+                   trunc, bounds: "tuple | None" = None) -> torch.Tensor:
     """0-anchored min-max to 0-10 ints (interpod_affinity.go:222-244),
-    normalized over the ready nodes only."""
+    normalized over the ready nodes only.  ``bounds``, when given, is
+    (max, min) [P] of the ready nodes' counts over a wider node axis
+    than these columns (a node shard of parallel/mesh.py)."""
     inf = float("inf")
-    max_c = torch.clamp(
-        torch.where(schedulable[None, :], counts, -inf).amax(dim=1), min=0.0)
-    min_c = torch.clamp(
-        torch.where(schedulable[None, :], counts, inf).amin(dim=1), max=0.0)
+    if bounds is None:
+        bounds = (torch.where(schedulable[None, :], counts, -inf)
+                  .amax(dim=1),
+                  torch.where(schedulable[None, :], counts, inf)
+                  .amin(dim=1))
+    max_c = torch.clamp(bounds[0], min=0.0)
+    min_c = torch.clamp(bounds[1], max=0.0)
     denom = (max_c - min_c)[:, None]
     score = trunc(10.0 * (counts - min_c[:, None])
                   / torch.clamp(denom, min=1e-9))

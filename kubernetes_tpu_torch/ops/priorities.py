@@ -88,26 +88,33 @@ def balanced_resource_allocation(pod_nonzero: torch.Tensor,
 
 
 def node_affinity(sel_group: torch.Tensor, sel_pref_counts: torch.Tensor,
-                  schedulable: torch.Tensor) -> torch.Tensor:
+                  schedulable: torch.Tensor,
+                  max_count: "torch.Tensor | None" = None) -> torch.Tensor:
     """CalculateNodeAffinityPriority (node_affinity.go:32-86): weighted
     preferred-term match counts normalized per pod to int(10*count/max)
-    over the ready nodes; all-zero when no term matches anywhere."""
+    over the ready nodes; all-zero when no term matches anywhere.
+    ``max_count`` [P,1], when given, is that maximum taken over a wider
+    node axis than these columns (a node shard of parallel/mesh.py)."""
     counts = sel_pref_counts[sel_group.long()].float()            # [P,N]
-    max_count = torch.where(schedulable[None, :], counts, 0.0) \
-        .amax(dim=1, keepdim=True)
+    if max_count is None:
+        max_count = torch.where(schedulable[None, :], counts, 0.0) \
+            .amax(dim=1, keepdim=True)
     score = _trunc(10.0 * counts / torch.clamp(max_count, min=1e-9))
     return torch.where(max_count > 0, score, 0.0)
 
 
 def taint_toleration(pod_tol_prefer: torch.Tensor,
                      node_taints_prefer: torch.Tensor,
-                     schedulable: torch.Tensor) -> torch.Tensor:
+                     schedulable: torch.Tensor,
+                     max_count: "torch.Tensor | None" = None
+                     ) -> torch.Tensor:
     """ComputeTaintTolerationPriority (taint_toleration.go:54-105):
     int((1 - count/max)*10) over intolerable PreferNoSchedule taints, 10
-    everywhere when max==0."""
+    everywhere when max==0 (``max_count`` as in :func:`node_affinity`)."""
     counts = (~pod_tol_prefer).float() @ node_taints_prefer.float().T
-    max_count = torch.where(schedulable[None, :], counts, 0.0) \
-        .amax(dim=1, keepdim=True)
+    if max_count is None:
+        max_count = torch.where(schedulable[None, :], counts, 0.0) \
+            .amax(dim=1, keepdim=True)
     score = _trunc((1.0 - counts / torch.clamp(max_count, min=1e-9)) * 10.0)
     return torch.where(max_count > 0, score, 10.0)
 
@@ -117,10 +124,13 @@ def selector_spread(spread_group: torch.Tensor,
                     spread_zone_counts: torch.Tensor,
                     spread_has_zones: torch.Tensor,
                     node_zone_id: torch.Tensor,
-                    schedulable: torch.Tensor) -> torch.Tensor:
+                    schedulable: torch.Tensor,
+                    max_count: "torch.Tensor | None" = None
+                    ) -> torch.Tensor:
     """SelectorSpreadPriority (selector_spreading.go:63-175): fewer
     same-selector pods is better; with zones, blend the node score 1/3
-    with the zone score 2/3.  f32 throughout, as the reference."""
+    with the zone score 2/3.  f32 throughout, as the reference
+    (``max_count`` as in :func:`node_affinity`)."""
     g = spread_group.long()
     counts = spread_node_counts[g]                                # [P,N]
     zc = spread_zone_counts[g]                                    # [P,Z]
@@ -128,8 +138,9 @@ def selector_spread(spread_group: torch.Tensor,
     zcounts = zc[:, torch.clamp(node_zone_id, min=0).long()]      # [P,N]
     zcounts = torch.where(node_has_zone[None, :], zcounts, 0.0)
     has_zones = spread_has_zones[g][:, None]                      # [P,1]
-    max_count = torch.where(schedulable[None, :], counts, 0.0) \
-        .amax(dim=1, keepdim=True)
+    if max_count is None:
+        max_count = torch.where(schedulable[None, :], counts, 0.0) \
+            .amax(dim=1, keepdim=True)
     f = torch.where(max_count > 0,
                     10.0 * ((max_count - counts)
                             / torch.clamp(max_count, min=1e-9)),

@@ -8,8 +8,9 @@ cpu] [--out build/BENCH_cuda.json] [--profile-dir DIR]``.  It reads the
 same environment names: ``BENCH_NODES`` (5000), ``BENCH_PODS`` (30000),
 ``BENCH_PROFILE`` (mixed), ``BENCH_DENSITY_RUNS`` (5), ``BENCH_WIRE`` (1),
 ``BENCH_WIRE_RUNS`` (3), ``BENCH_JOINT`` (1), ``BENCH_WORKLOADS`` (1),
-``BENCH_SERVING`` (1), ``BENCH_FLEET`` (1) and ``BENCH_SOAK`` (1); 0
-skips a phase.
+``BENCH_SERVING`` (1), ``BENCH_FLEET`` (1), ``BENCH_SOAK`` (1) and
+``BENCH_TENANCY`` (1); 0 skips a phase (``BENCH_DENSITY_RUNS=0`` skips
+the density runs, and the headline keys are then null).
 
 * **density**: ``BENCH_DENSITY_RUNS`` runs of ``perf/harness.density``
   for each setting (``stream``, ``one-shot``; ``harness.py`` says what
@@ -42,9 +43,11 @@ on a card ``"backend": "cuda"`` with the card line (``nvidia-smi``), the
 one-time kernel-library build and ``post_prewarm_compiles`` (``nvcc``
 builds after each run's warm-up; it must be 0).
 
-Left out, each named under ``left_out`` in the artifact: ``cold_vs_warm``
-(the JAX persistent compile cache; the port has no per-shape compile),
-``tenancy`` (ROADMAP §A item 1) and the ``xray`` stamp (§A item 5).
+The artifact carries the ``xray`` stamp of the root bench: the hash and
+program count of the port's committed compile-surface manifest
+(``analysis/xray.manifest_summary``).  Left out, named under
+``left_out`` in the artifact: ``cold_vs_warm`` (the JAX persistent
+compile cache; the port has no per-shape compile).
 It never writes the JAX package's records (``BENCH_r*.json``,
 ``BASELINE*``, ``SERVING_r*``, ...).
 """
@@ -62,10 +65,6 @@ LEFT_OUT = {
                     "cache; the port compiles nothing per shape and its "
                     "nvcc library is cached by a hash of its sources "
                     "(see library_build_s)",
-    "tenancy": "waits for ROADMAP §A item 1 (the bench's call of "
-               "perf/tenancy.collect, which runs on its own as python -m "
-               "kubernetes_tpu_torch.perf.tenancy)",
-    "xray": "waits for ROADMAP §A item 5 (the compile-surface manifest)",
 }
 BASELINE_PODS_PER_S = 8.0  # test/e2e/density.go:48 MinPodsPerSecondThroughput
 _REFERENCE_RECORDS = ("BENCH_r", "BASELINE", "SERVING_r", "WORKLOADS_r",
@@ -177,7 +176,8 @@ def main(argv=None) -> int:
     device = str(dev)
     opts.out = opts.out or f"build/BENCH_{dev.type}.json"
     _refuse(opts.out)
-    profile_dir = opts.profile_dir or os.environ.get("KT_PROFILE_DIR", "")
+    from kubernetes_tpu_torch.utils import knobs
+    profile_dir = opts.profile_dir or knobs.get("KT_PROFILE_DIR")
     if profile_dir:
         # Every solve the phases run is wrapped in device_trace; the flag
         # just arms the directory.
@@ -214,7 +214,7 @@ def main(argv=None) -> int:
     settings: dict = {}
     launches_by_path: dict = {}
     cold_compile_s = None
-    for setting in harness.SETTINGS:
+    for setting in harness.SETTINGS if runs_n > 0 else ():
         before = harness.kernel_launches()
         results = []
         for _ in range(runs_n):
@@ -382,7 +382,42 @@ def main(argv=None) -> int:
             if missed:
                 failures.append(f"soak: {'; '.join(missed)}")
 
-    head = settings["stream"]
+    tenancy = None
+    if os.environ.get("BENCH_TENANCY", "1") != "0":
+        from kubernetes_tpu_torch.perf import tenancy as tenancy_mod
+        before = harness.kernel_launches()
+        rec = None
+        try:
+            rec = tenancy_mod.collect(quiet=True, device=device)
+        except Exception as err:  # noqa: BLE001 — named; the run fails
+            failures.append(f"tenancy: {type(err).__name__}: {err}")
+        launches_by_path["tenancy"] = harness.launches_since(before)
+        if rec is not None:
+            path = os.path.join(out_dir,
+                                f"TENANCY_{stamp['backend']}.json")
+            _write(path, rec)
+            missed = tenancy_mod.violations(rec)
+            tenancy = {
+                "interference_ratio": rec["interference"]["ratio"],
+                "fairness_max_rel_error":
+                    rec["fairness"]["max_rel_error"],
+                "cross_tenant_faults":
+                    rec["isolation"]["cross_tenant_faults"],
+                "post_prewarm_compiles":
+                    rec["device"]["post_prewarm_compiles"],
+                "violations": missed,
+                "record": path,
+            }
+            print(f"tenancy: interference {tenancy['interference_ratio']}"
+                  f"x, fairness err {tenancy['fairness_max_rel_error']}, "
+                  f"cross-tenant faults "
+                  f"{tenancy['cross_tenant_faults']} -> {path}",
+                  file=sys.stderr)
+            if missed:
+                failures.append(f"tenancy: {'; '.join(missed)}")
+
+    from kubernetes_tpu_torch.analysis.xray import manifest_summary
+    head = settings.get("stream", {})
     post_prewarm = sum(r["device"]["post_prewarm_compiles"]
                        for r in settings.values()) + \
         sum(w.get("post_prewarm_compiles", 0) for w in wire.values())
@@ -391,18 +426,15 @@ def main(argv=None) -> int:
                   f"nodes (default policy, full daemon: queue->batched "
                   f"device solve->assume->bind)",
         **stamp,
-        "value": head["value"],
+        # The compile surface this run measured (the root bench's stamp).
+        "xray": manifest_summary(),
+        "value": head.get("value"),
         "unit": "pods/s",
-        "vs_baseline": head["vs_baseline"],
+        "vs_baseline": head.get("vs_baseline"),
         "cold_compile_s": round(cold_compile_s or 0.0, 1),
-        "runs": head["runs"],
-        "median": head["median"],
-        "elapsed_s_runs": head["elapsed_s_runs"],
-        "elapsed_s_p50": head["elapsed_s_p50"],
-        "elapsed_s_spread": head["elapsed_s_spread"],
-        "stages": head["stages"],
-        "device": head["device"],
-        "profile": head["profile"],
+        **{k: head.get(k) for k in (
+            "runs", "median", "elapsed_s_runs", "elapsed_s_p50",
+            "elapsed_s_spread", "stages", "device", "profile")},
         "headline_setting": "stream",
         "settings": settings,
         "library_build_s": library,
@@ -425,6 +457,8 @@ def main(argv=None) -> int:
         out["fleet"] = fleet
     if soak is not None:
         out["soak"] = soak
+    if tenancy is not None:
+        out["tenancy"] = tenancy
     if post_prewarm:
         failures.append(f"{post_prewarm} kernel builds after the warm-up")
     from kubernetes_tpu_torch.utils import profiler

@@ -31,9 +31,7 @@ import gc
 import sys
 import threading
 import time
-from typing import Optional, Union
-
-import torch
+from typing import TYPE_CHECKING, Optional, Union
 
 from kubernetes_tpu_torch.api import types as api
 from kubernetes_tpu_torch.api.policy import Policy
@@ -48,6 +46,9 @@ from kubernetes_tpu_torch.scheduler.scheduler import Scheduler, SchedulerConfig
 from kubernetes_tpu_torch.utils import knobs, threadreg
 from kubernetes_tpu_torch.utils.events import EventRecorder, async_sink
 from kubernetes_tpu_torch.utils.logging import get_logger
+
+if TYPE_CHECKING:  # annotations only: the engine owns the device
+    import torch
 
 log = get_logger("factory")
 

@@ -616,8 +616,6 @@ class Scheduler:
         arms at the end."""
         import contextlib as _contextlib
 
-        import torch
-
         from kubernetes_tpu_torch.engine import devicestats
         from kubernetes_tpu_torch.utils.featuregate import \
             DEFAULT_FEATURE_GATE
@@ -639,8 +637,7 @@ class Scheduler:
                 b0 = devicestats.builds()
                 t0 = time.perf_counter()
                 fn()
-                if cuda:
-                    torch.cuda.synchronize(alg.device)
+                devicestats.synchronize(alg.device)
                 dt = time.perf_counter() - t0
                 stats[key] = {"builds": devicestats.builds() - b0,
                               "seconds": round(dt, 3)}
@@ -667,15 +664,8 @@ class Scheduler:
             if cuda:
                 from kubernetes_tpu_torch.engine import fused
                 n = len(alg.cache.nodes())
-
-                def run_select():
-                    fused.select_rows(
-                        torch.zeros((1, n), dtype=torch.float32,
-                                    device=alg.device),
-                        torch.zeros(1, dtype=torch.int64,
-                                    device=alg.device))
-
-                audited("select_rows@1", run_select)
+                audited("select_rows@1",
+                        lambda: fused.warm(n, alg.device))
 
             def run_single():
                 try:

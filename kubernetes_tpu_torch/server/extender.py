@@ -35,13 +35,15 @@ import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
+from typing import TYPE_CHECKING
+
 import numpy as np
-import torch
 
 from kubernetes_tpu_torch.api import types as api
 from kubernetes_tpu_torch.api.policy import Policy, default_provider, policy_from_json
 from kubernetes_tpu_torch.api.validation import validate_policy
 from kubernetes_tpu_torch.cache.scheduler_cache import SchedulerCache
+from kubernetes_tpu_torch.engine import devicestats
 from kubernetes_tpu_torch.engine.generic_scheduler import GenericScheduler, Listers
 from kubernetes_tpu_torch.engine.solver import batch_flags
 from kubernetes_tpu_torch.features.batch import pod_template_key
@@ -49,6 +51,9 @@ from kubernetes_tpu_torch.utils import device as device_mod
 from kubernetes_tpu_torch.utils import trace
 from kubernetes_tpu_torch.utils.debugmux import common_route
 from kubernetes_tpu_torch.utils.metrics import SchedulerMetrics
+
+if TYPE_CHECKING:  # annotations only: the engine owns the device
+    import torch
 
 
 class _EngineEvicted(Exception):
@@ -93,7 +98,7 @@ class _EvalResult:
             masks = None
             for i in np.flatnonzero(~self.feasible):
                 if masks is None:
-                    masks = {k: v[0].cpu().numpy() for k, v in
+                    masks = {k: devicestats.to_host(v[0]) for k, v in
                              self.solver.masks(self.db, self.dc).items()}
                 reasons = [p for p, m in masks.items() if not m[i]] \
                     if self.nt.schedulable[i] else ["Unschedulable"]
@@ -230,8 +235,8 @@ class ExtenderCore:
         batch, db, dc, nt = eng._compile([pod])
         feasible, scores = eng.solver.evaluate(db, dc, batch_flags(batch))
         result = _EvalResult(pod, [n.name for n in eng.cache.nodes()],
-                             feasible[0].cpu().numpy(),
-                             scores[0].cpu().numpy(),
+                             devicestats.to_host(feasible[0]),
+                             devicestats.to_host(scores[0]),
                              eng.solver, db, dc, nt, item_bytes)
         with self._lock:
             memo[tkey] = result

@@ -187,6 +187,10 @@ REGISTRY: dict[str, tuple[str, str]] = {
     "KT_TENANT_URGENT_MS": (
         "", "Urgency-lane queue-age override in ms (default: the "
             "formation deadline)"),
+    "KT_HA_RECORDS": (
+        "", "perf/ha_takeover.py: a directory; each scheduler process it "
+            "starts writes its lease thread's records there (empty = "
+            "off)"),
     # -- continuous rebalancing (scheduler/defrag.py)
     "KT_DEFRAG": (
         "0", "Background defragmentation loop (scheduler/defrag.py): dry "

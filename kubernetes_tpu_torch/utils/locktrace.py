@@ -116,7 +116,12 @@ def _metrics():
     return metrics
 
 
-def _record_acquired(name: str) -> None:
+def _record_acquiring(name: str) -> None:
+    """The order edges (and any inversion) of this thread taking ``name``
+    on top of the locks it holds.  Traced locks call it before a
+    blocking acquire, outside the lock's critical section: bookkeeping
+    under the lock itself would hold it across the interpreter lock's
+    switches and convoy every thread queued behind it."""
     stack = _held_stack()
     thread = threading.current_thread().name
     inversion = None
@@ -142,7 +147,6 @@ def _record_acquired(name: str) -> None:
                     }
                     if len(_inversions) < _DETAIL_CAP:
                         _inversions.append(inversion)
-    stack.append((name, time.perf_counter()))
     if inversion is not None:
         _metrics().LOCK_INVERSIONS.inc()
         log.warning("lock-order inversion: %s after %s (thread %s; "
@@ -151,30 +155,37 @@ def _record_acquired(name: str) -> None:
                     inversion["reverse_thread"])
 
 
-def _record_released(name: str,
-                     hold_override_s: Optional[float] = None) -> None:
+def _push_held(name: str) -> None:
+    _held_stack().append((name, time.perf_counter()))
+
+
+def _pop_held(name: str) -> Optional[float]:
+    """Seconds this thread held ``name`` (None when it holds none)."""
     stack = _held_stack()
     for i in range(len(stack) - 1, -1, -1):
-        if stack[i][0] != name:
-            continue
-        held_s = time.perf_counter() - stack[i][1]
-        del stack[i]
-        threshold = _hold_threshold_s if hold_override_s is None \
-            else hold_override_s
-        if threshold > 0 and held_s > threshold:
-            with _state_lock:
-                _counts["long_holds"] += 1
-                if len(_long_holds) < _DETAIL_CAP:
-                    _long_holds.append({
-                        "lock": name,
-                        "held_ms": round(held_s * 1e3, 1),
-                        "thread": threading.current_thread().name,
-                    })
-            _metrics().LOCK_LONG_HOLDS.inc()
-            log.warning("long lock hold: %s held %.0f ms (threshold "
-                        "%.0f ms)", name, held_s * 1e3,
-                        threshold * 1e3)
-        return
+        if stack[i][0] == name:
+            held_s = time.perf_counter() - stack[i][1]
+            del stack[i]
+            return held_s
+    return None
+
+
+def _report_hold(name: str, held_s: float,
+                 hold_override_s: Optional[float] = None) -> None:
+    threshold = _hold_threshold_s if hold_override_s is None \
+        else hold_override_s
+    if threshold > 0 and held_s > threshold:
+        with _state_lock:
+            _counts["long_holds"] += 1
+            if len(_long_holds) < _DETAIL_CAP:
+                _long_holds.append({
+                    "lock": name,
+                    "held_ms": round(held_s * 1e3, 1),
+                    "thread": threading.current_thread().name,
+                })
+        _metrics().LOCK_LONG_HOLDS.inc()
+        log.warning("long lock hold: %s held %.0f ms (threshold "
+                    "%.0f ms)", name, held_s * 1e3, threshold * 1e3)
 
 
 class TracedLock:
@@ -183,7 +194,11 @@ class TracedLock:
     ``hold_ms`` overrides the global long-hold threshold for this lock
     (0 disables it): a capacity-serializing lock — the tenancy engine
     lock, whose hold time IS the device solve — is not a long-hold bug,
-    and its duration is already measured by the solve stage spans."""
+    and its duration is already measured by the solve stage spans.
+
+    Inside the critical section only the hold's start is stamped: the
+    order edges are recorded before a blocking acquire and the long-hold
+    check runs after the release."""
 
     _inner_factory = staticmethod(threading.Lock)
 
@@ -193,22 +208,32 @@ class TracedLock:
             else max(float(hold_ms), 0.0) / 1e3
         self._inner = self._inner_factory()
 
+    def _outermost(self) -> bool:
+        return True
+
     def acquire(self, blocking: bool = True,
                 timeout: float = -1) -> bool:
+        early = blocking and timeout < 0 and self._outermost()
+        if early:
+            _record_acquiring(self.name)
         got = self._inner.acquire(blocking, timeout)
         if got:
-            self._record_after_acquire()
+            self._after_acquire(early)
         return got
 
-    def _record_after_acquire(self) -> None:
-        _record_acquired(self.name)
+    def _after_acquire(self, recorded: bool) -> None:
+        if not recorded:
+            _record_acquiring(self.name)
+        _push_held(self.name)
 
     def release(self) -> None:
-        self._record_before_release()
+        held_s = self._before_release()
         self._inner.release()
+        if held_s is not None:
+            _report_hold(self.name, held_s, self._hold_override_s)
 
-    def _record_before_release(self) -> None:
-        _record_released(self.name, self._hold_override_s)
+    def _before_release(self) -> Optional[float]:
+        return _pop_held(self.name)
 
     def locked(self) -> bool:
         return self._inner.locked()
@@ -233,17 +258,19 @@ class TracedRLock(TracedLock):
         super().__init__(name, hold_ms=hold_ms)
         self._depth = threading.local()
 
-    def _record_after_acquire(self) -> None:
+    def _outermost(self) -> bool:
+        return getattr(self._depth, "n", 0) == 0
+
+    def _after_acquire(self, recorded: bool) -> None:
         depth = getattr(self._depth, "n", 0)
         self._depth.n = depth + 1
         if depth == 0:
-            _record_acquired(self.name)
+            super()._after_acquire(recorded)
 
-    def _record_before_release(self) -> None:
+    def _before_release(self) -> Optional[float]:
         depth = getattr(self._depth, "n", 1) - 1
         self._depth.n = depth
-        if depth == 0:
-            _record_released(self.name, self._hold_override_s)
+        return _pop_held(self.name) if depth == 0 else None
 
 
 LockLike = Union[threading.Lock, TracedLock]

@@ -106,6 +106,13 @@ _MAX_INTERVAL = 10.0
 # json.dumps hides (the C encoder leaves no Python frame of its own, so
 # the serializing CALLER is the only sample the wall clock can land on).
 _FN_RULES: tuple[tuple[str, dict[str, str]], ...] = (
+    # The binder's POST path of this package's client/http.py runs on
+    # the client's bind-list pool, where no binder frame sits above it:
+    # its chunk functions are commit_bind by name (the JAX package's rule
+    # names only the pump, so it files these POSTs under other).
+    ("kubernetes_tpu_torch/client/http.py", {
+        "_pump": "watch_decode", "bind_list": "commit_bind",
+        "one_chunk": "commit_bind", "_bind_list_chunk": "commit_bind"}),
     ("client/http.py", {"_pump": "watch_decode"}),
     ("apiserver/server.py", {"_send_json": "serialize",
                              "_send_raw": "serialize",
@@ -159,6 +166,23 @@ _PATH_RULES: tuple[tuple[str, str], ...] = (
     ("kubernetes_tpu_torch/cache/scheduler_cache", "commit_bind"),
 )
 
+# Thread-role rules: a pool whose threads run one component's work and
+# nothing else.  A per-thread CPU delta is charged to the stack sampled
+# at the tick; for these threads that stack is often the idle worker
+# loop (concurrent/futures/thread.py:_worker, between two work items) or
+# the thread's exit (threading.py:_delete), which no path rule names,
+# while the CPU since the last tick went to their one kind of work.
+# Consulted only when the stack classifies as other.  (The JAX package
+# has no thread rules.)
+_THREAD_RULES: tuple[tuple[str, str], ...] = (
+    # DrainPipeline's commit pool: only _commit_chunk work items.
+    ("chunk-commit", "commit_bind"),
+    # APIClient.bind_list's pool: only bind-list chunks.
+    ("bind-list", "commit_bind"),
+    # Scheduler's async binders: one _bind_assumed_batch each.
+    ("bind-batch", "commit_bind"),
+)
+
 _MAX_STACK_DEPTH = 48
 _MAX_THREAD_LABELS = 24
 
@@ -175,6 +199,15 @@ def classify_frame(filename: str, func: str) -> Optional[str]:
             return funcs.get(func)
     for prefix, comp in _PATH_RULES:
         if prefix in f:
+            return comp
+    return None
+
+
+def classify_thread(name: str) -> Optional[str]:
+    """Component of a thread whose role is one component's work (by
+    its name's prefix), or None."""
+    for prefix, comp in _THREAD_RULES:
+        if name.startswith(prefix):
             return comp
     return None
 
@@ -382,9 +415,11 @@ class Profiler:
                 continue   # sampler self-cost tracked via thread_time
             frame = frames.get(ident)
             comp = classify_stack(frame) if frame is not None else "other"
+            t = threads.get(ident)
+            if comp == "other" and t is not None:
+                comp = classify_thread(t.name) or comp
             self._comp_cpu[comp] += dcpu
             window[comp] += dcpu
-            t = threads.get(ident)
             if t is not None:
                 self._note_thread_locked(t.name, dcpu)
             if frame is not None:

@@ -17,6 +17,12 @@ the CPU.
 * The soak phase: ``BENCH_SOAK=0`` skips it; otherwise it writes
   ``SOAK_<backend>.json`` beside ``--out`` and a record that misses a bar
   of ``soak.violations`` fails the run.
+* The tenancy phase: ``BENCH_TENANCY=0`` skips it; otherwise it runs
+  ``perf/tenancy.collect`` (here at a toy size: a few nodes, a 1 s
+  trickle), writes ``TENANCY_<backend>.json`` beside ``--out``, counts
+  its launches, and a record that misses a bar of
+  ``tenancy.violations`` fails the run.  The artifact carries the root
+  bench's ``xray`` stamp, and ``LEFT_OUT`` is ``cold_vs_warm`` alone.
 """
 
 from __future__ import annotations
@@ -120,7 +126,7 @@ def test_the_artifact_carries_the_reference_keys(tmp_path, monkeypatch):
                  "BENCH_DENSITY_RUNS": "2", "BENCH_WIRE_RUNS": "1",
                  "BENCH_WL_NODES": "20", "BENCH_WL_PODS": "80",
                  "KT_NATIVE_APISERVER": "0", "KT_WIRE_CHUNK": "256",
-                 "BENCH_SOAK": "0"}.items():
+                 "BENCH_SOAK": "0", "BENCH_TENANCY": "0"}.items():
         monkeypatch.setenv(k, v)
     real_fleet = harness.fleet_metrics
 
@@ -148,8 +154,11 @@ def test_the_artifact_carries_the_reference_keys(tmp_path, monkeypatch):
     art = json.loads(out.read_text())
     ref = json.loads((REPO / "BENCH_r16.json").read_text())["parsed"]
     assert set(ref) - set(art) == set(bench.LEFT_OUT) & set(ref)
-    assert set(bench.LEFT_OUT) == {"cold_vs_warm", "tenancy", "xray"}
-    assert "soak" not in art  # BENCH_SOAK=0
+    assert set(bench.LEFT_OUT) == {"cold_vs_warm"}
+    assert "soak" not in art and "tenancy" not in art  # both phases off
+    from kubernetes_tpu_torch.analysis import xray
+    assert art["xray"] == xray.manifest_summary() and \
+        set(art["xray"]) == set(ref["xray"])
     assert set(art["fleet"]) >= set(ref["fleet"])
     assert art["fleet"]["running"] == art["fleet"]["replicas"] == 12
     assert set(art["wire"]) >= set(ref["wire"])
@@ -190,7 +199,7 @@ def test_the_bench_refuses_a_missing_card_and_reference_records():
 def test_left_out_no_longer_names_the_soak():
     from kubernetes_tpu_torch.perf import bench
     assert "soak" not in bench.LEFT_OUT
-    assert set(bench.LEFT_OUT) == {"cold_vs_warm", "tenancy", "xray"}
+    assert set(bench.LEFT_OUT) == {"cold_vs_warm"}
 
 
 def _clean_soak_record() -> dict:
@@ -211,6 +220,7 @@ def _bench_with_soak(tmp_path, monkeypatch, record, soak_on=True) -> tuple:
                  "BENCH_DENSITY_RUNS": "1", "BENCH_WIRE": "0",
                  "BENCH_JOINT": "0", "BENCH_WORKLOADS": "0",
                  "BENCH_SERVING": "0", "BENCH_FLEET": "0",
+                 "BENCH_TENANCY": "0",
                  "BENCH_SOAK": "1" if soak_on else "0"}.items():
         monkeypatch.setenv(k, v)
     calls = []
@@ -253,3 +263,102 @@ def test_a_soak_record_with_a_violation_fails_the_run(tmp_path,
     assert rc == 1
     assert art["soak"]["violations"]
     assert [f for f in art["failures"] if f.startswith("soak: ")]
+
+
+# -- the tenancy phase --------------------------------------------------------
+
+def _clean_tenancy_record() -> dict:
+    slo = {"attainment_pct": 100.0, "attainment_floor_pct": 99.0}
+    return {"rows": {"t-a": {"slo": slo}, "t-b": {"slo": slo}},
+            "tenants": ["t-a", "t-b", "t-c"],
+            "interference": {"ratio": 1.4, "bar": 2.0},
+            "fairness": {"max_rel_error": 0.05, "bar": 0.10,
+                         "bound_total": 30, "offered_per_tenant": 10},
+            "isolation": {"adversarial_tenant": "t-c",
+                          "cross_tenant_faults": 0,
+                          "breaker_trips": {"t-c": 1}, "repromoted": True,
+                          "all_bound": True,
+                          "victim_modes": {"t-a": "device",
+                                           "t-b": "device"},
+                          "victim_breaker_trips": {"t-a": 0, "t-b": 0}},
+            "device": {"post_prewarm_compiles": 0}}
+
+
+def _bench_with_tenancy(tmp_path, monkeypatch, collect, on=True) -> tuple:
+    """The bench with every phase off but tenancy, whose
+    ``tenancy.collect`` is ``collect``."""
+    from kubernetes_tpu_torch.perf import bench, tenancy
+    for k, v in {"BENCH_DENSITY_RUNS": "0", "BENCH_WIRE": "0",
+                 "BENCH_JOINT": "0", "BENCH_WORKLOADS": "0",
+                 "BENCH_SERVING": "0", "BENCH_FLEET": "0",
+                 "BENCH_SOAK": "0",
+                 "BENCH_TENANCY": "1" if on else "0"}.items():
+        monkeypatch.setenv(k, v)
+    calls = []
+
+    def fake_collect(quiet=False, device="cuda"):
+        calls.append((quiet, device))
+        return collect(device)
+    monkeypatch.setattr(tenancy, "collect", fake_collect)
+    out = tmp_path / "BENCH_cpu.json"
+    rc = bench.main(["--device", "cpu", "--out", str(out)])
+    return rc, json.loads(out.read_text()), calls
+
+
+def test_a_toy_tenancy_phase_writes_its_record(tmp_path, monkeypatch):
+    from kubernetes_tpu_torch.perf import tenancy
+    real = tenancy.collect
+
+    def toy(device):
+        return real(n_nodes=12, trickle_rate=10.0, trickle_s=1.0,
+                    offered_per_tenant=60, quiet=True, device=device)
+    rc, art, calls = _bench_with_tenancy(tmp_path, monkeypatch, toy)
+    assert calls == [(True, "cpu")]
+    written = json.loads((tmp_path / "TENANCY_cpu.json").read_text())
+    assert written["backend"] == "cpu"
+    missed = tenancy.violations(written)
+    assert art["tenancy"]["violations"] == missed
+    assert rc == (1 if missed else 0)
+    assert art["tenancy"]["cross_tenant_faults"] == \
+        written["isolation"]["cross_tenant_faults"] == 0
+    assert art["tenancy"]["record"] == str(tmp_path / "TENANCY_cpu.json")
+    assert art["launches_by_path"]["tenancy"] == {
+        "scan_chunk": 0, "select_rows": 0, "select_hosts": 0}
+    assert art["value"] is None and "settings" in art
+
+
+def test_bench_tenancy_zero_skips_the_phase(tmp_path, monkeypatch):
+    rc, art, calls = _bench_with_tenancy(
+        tmp_path, monkeypatch, lambda d: _clean_tenancy_record(), on=False)
+    assert rc == 0 and calls == [] and "tenancy" not in art
+    assert "tenancy" not in art["launches_by_path"]
+    assert not (tmp_path / "TENANCY_cpu.json").exists()
+
+
+@pytest.mark.parametrize("plant", ["interference", "faults", "raise"])
+def test_a_tenancy_violation_fails_the_run(tmp_path, monkeypatch, plant):
+    def collect(device):
+        rec = _clean_tenancy_record()
+        if plant == "interference":
+            rec["interference"]["ratio"] = 2.5
+        elif plant == "faults":
+            rec["isolation"]["cross_tenant_faults"] = 1
+        else:
+            raise RuntimeError("rig down")
+        return rec
+    rc, art, _ = _bench_with_tenancy(tmp_path, monkeypatch, collect)
+    assert rc == 1
+    failures = [f for f in art["failures"] if f.startswith("tenancy: ")]
+    assert failures
+    if plant == "raise":
+        assert "RuntimeError: rig down" in failures[0]
+    else:
+        assert art["tenancy"]["violations"]
+
+
+def test_a_clean_tenancy_record_passes(tmp_path, monkeypatch):
+    rc, art, _ = _bench_with_tenancy(
+        tmp_path, monkeypatch, lambda d: _clean_tenancy_record())
+    assert rc == 0 and art["failures"] == []
+    assert art["tenancy"]["violations"] == []
+    assert art["tenancy"]["interference_ratio"] == 1.4

@@ -198,7 +198,8 @@ def small_bench(monkeypatch):
     for k, v in {"BENCH_NODES": "16", "BENCH_PODS": "48",
                  "BENCH_DENSITY_RUNS": "1", "BENCH_WIRE": "0",
                  "BENCH_JOINT": "0", "BENCH_WORKLOADS": "0",
-                 "BENCH_SERVING": "0", "BENCH_SOAK": "0"}.items():
+                 "BENCH_SERVING": "0", "BENCH_SOAK": "0",
+                 "BENCH_TENANCY": "0"}.items():
         monkeypatch.setenv(k, v)
     real = harness.fleet_metrics
 

@@ -95,6 +95,13 @@ def test_port_sources_import_no_jax_and_no_reference_package():
     # The churn soak.
     assert {"chaos/proxy.py", "chaos/bindmonitor.py", "chaos/__init__.py",
             "perf/soak.py", "perf/soak_repeat.py"} <= names
+    # kt-lint, the manifest, the registry and the mesh.
+    assert {"analysis/__init__.py", "analysis/__main__.py",
+            "analysis/core.py", "analysis/rules_device.py",
+            "analysis/rules_concurrency.py", "analysis/knobs_check.py",
+            "analysis/xray.py", "engine/entrypoints.py",
+            "parallel/__init__.py", "parallel/mesh.py",
+            "perf/wire_profile.py"} <= names
     bad = {str(f.relative_to(REPO)): [m for m in _imports(f)
                                       if _forbidden(m)]
            for f in files}
@@ -132,6 +139,38 @@ def test_a_port_drain_loads_no_jax_module():
     assert proc.returncode == 0, proc.stderr[-2000:]
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert out["placed"] > 0
+    assert out["forbidden"] == []
+
+
+_ANALYSIS = r"""
+import json, sys
+from kubernetes_tpu_torch import analysis
+from kubernetes_tpu_torch.analysis import core, knobs_check, xray
+from kubernetes_tpu_torch.parallel import mesh
+lint = core.run_project()
+manifest, _ = xray.build_manifest()
+rec = mesh.dryrun_multichip(2, device="cpu", n_nodes=21, n_pods=16,
+                            profile="rich", quiet=True)
+mods = sorted(m for m in sys.modules
+              if m in ("jax", "jaxlib", "kubernetes_tpu")
+              or m.startswith(("jax.", "jaxlib.", "kubernetes_tpu.")))
+print(json.dumps({"lint": len(lint.new), "knobs": knobs_check.problems(),
+                  "programs": len(manifest["programs"]),
+                  "placed": rec["placed"], "forbidden": mods}))
+"""
+
+
+def test_analysis_and_parallel_load_no_jax_module():
+    """kt-lint, the knob check, the manifest's rebuild and the mesh's dry
+    run, in a fresh interpreter, load neither JAX nor the JAX package."""
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, "-c", _ANALYSIS], cwd=REPO,
+                          env=env, capture_output=True, text=True,
+                          timeout=240)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out["lint"] == 0 and out["knobs"] == []
+    assert out["programs"] > 10 and out["placed"] > 0
     assert out["forbidden"] == []
 
 

@@ -109,6 +109,63 @@ def test_classify_frame_function_gated_rules():
     assert cf(f"{PORT}/utils/events.py", "pump") == "commit_bind"
 
 
+def test_the_bind_list_pool_is_commit_bind():
+    """The binder's POST path of the port's client/http.py (its bind-list
+    pool's chunk functions) is commit_bind; the shared request helpers
+    walk outward; the JAX package's own file path stays outside the
+    port's rules, and the JAX rules leave the chunks in other."""
+    cf = profiler.classify_frame
+    http = f"{PORT}/client/http.py"
+    for fn in ("bind_list", "one_chunk", "_bind_list_chunk"):
+        assert cf(http, fn) == "commit_bind", fn
+        assert cf("/r/kubernetes_tpu/client/http.py", fn) is None
+        assert ref_profiler.classify_frame(
+            "/r/kubernetes_tpu/client/http.py", fn) is None
+    assert cf(http, "_send_once") is None and cf(http, "_request") is None
+    assert cf(http, "_pump") == "watch_decode"
+
+
+def test_thread_role_rules():
+    ct = profiler.classify_thread
+    assert ct("chunk-commit_0") == "commit_bind"
+    assert ct("bind-list_3") == "commit_bind"
+    assert ct("bind-batch") == "commit_bind"
+    for name in ("scheduler-loop", "MainThread", "reflector-pods",
+                 "scheduler-status-http", "Thread-7 (create)"):
+        assert ct(name) is None, name
+
+
+def _idle_loop(stop: threading.Event) -> None:
+    """A pool worker's shape: its own frames name no component."""
+    x = 0
+    while not stop.is_set():
+        x += 1
+
+
+@pytest.mark.parametrize("name,component", [
+    ("chunk-commit_0", "commit_bind"), ("bind-list_1", "commit_bind"),
+    ("bind-batch", "commit_bind"), ("some-pool_0", "other")])
+def test_a_role_thread_cpu_lands_in_its_component(name, component):
+    stop = threading.Event()
+    t = threading.Thread(target=_idle_loop, args=(stop,), name=name,
+                         daemon=True)
+    t.start()
+    p = profiler.Profiler()
+    try:
+        p.sample_once()
+        deadline = time.time() + 10.0
+        while time.time() < deadline:
+            time.sleep(0.05)
+            p.sample_once()
+            if p.snapshot()["cpu_seconds"][component] > 0.02:
+                break
+    finally:
+        stop.set()
+        t.join()
+    cpu = p.snapshot()["cpu_seconds"]
+    assert cpu[component] > 0.02, cpu
+
+
 def test_the_classifier_equals_the_reference_on_mapped_paths():
     """Every rule of the JAX package, on its own path and the port's
     counterpart path, gives the same component."""
@@ -345,3 +402,24 @@ def test_density_smoke_profiles_without_builds():
     assert set(r.profile.get("cpu_fraction", {})) <= \
         set(profiler.COMPONENTS)
     assert profiler.COMPONENTS == ref_profiler.COMPONENTS
+
+
+def test_wire_profile_classifies_folded_stacks_with_their_threads():
+    """perf/wire_profile.py reads the profiler's rules on folded stacks
+    whose first name is the thread: a pool thread's idle loop is its
+    role's component, the harness's poll loop stays other."""
+    from kubernetes_tpu_torch.perf import wire_profile as wp
+    pool = ("[chunk-commit];lib/python3.12/threading.py:run;"
+            "lib/python3.12/concurrent/futures/thread.py:_worker")
+    main = "[MainThread];kubernetes_tpu_torch/perf/harness.py:density_wire"
+    bind = ("[bind-list];kubernetes_tpu_torch/client/http.py:one_chunk;"
+            "kubernetes_tpu_torch/client/http.py:_send_once")
+    assert wp.classify_folded(pool) == "commit_bind"
+    assert wp.classify_folded(bind) == "commit_bind"
+    assert wp.classify_folded(main) == "other"
+    rec = wp.other_frames({pool: 0.5, main: 1.0, bind: 0.25})
+    assert rec["other_cpu_s"] == 1.0 and rec["all_cpu_s"] == 1.75
+    assert rec["by_leaf"] == [{
+        "frame": "kubernetes_tpu_torch/perf/harness.py:density_wire",
+        "thread": "MainThread", "cpu_s": 1.0,
+        "share_of_all": round(1.0 / 1.75, 6)}]
